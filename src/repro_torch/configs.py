@@ -1,0 +1,231 @@
+"""Model configs for the PyTorch port.
+
+A copy of ``ModelConfig`` (with the ``MoEConfig`` / ``SSMConfig`` field
+types it names) and of the registry entries the port serves: the port
+imports nothing of ``repro``, not even its framework-free modules, so it
+keeps its own copy. Field names, defaults and values match the JAX package
+field by field (``tests/test_torch_models.py`` checks it).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Mapping, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block parameters."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    shared_expert: bool = False
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """State-space / linear-recurrence block parameters (RWKV6, Mamba2)."""
+
+    kind: str  # "rwkv6" | "mamba2"
+    heads: int
+    head_dim: int
+    state_dim: int  # per-head recurrent state width
+    chunk: int = 128  # chunked-scan block length (sequence dim)
+    conv_dim: int = 4  # mamba2 short conv width
+    expand: int = 2  # mamba2 inner expansion
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One architecture. Families: dense, moe, ssm, hybrid, encdec, vlm
+    (only dense is served by the port so far)."""
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # enc-dec (whisper): n_layers is the decoder depth; enc_layers the encoder.
+    enc_layers: int = 0
+    # hybrid (zamba2): apply the single shared attention block every N layers.
+    shared_attn_every: int = 0
+    # modality frontend stub: None | "audio" | "vision"
+    frontend: Optional[str] = None
+    # number of stub frontend embeddings prepended to the token sequence
+    n_frontend_tokens: int = 0
+    dtype: str = "bfloat16"
+    # True if sequence mixing is sub-quadratic (eligible for long_500k).
+    sub_quadratic: bool = False
+    # per-(shape-name) microbatch size per data shard for gradient accumulation
+    microbatch: Mapping[str, int] = field(default_factory=dict)
+    # serving: tokens per KV page for the SkyByte paged-KV runtime.
+    kv_page_size: int = 256
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def param_count(self) -> int:
+        """Analytical parameter count (embedding + blocks + head)."""
+        d, h, kv, hd, ff, L = (
+            self.d_model,
+            self.n_heads,
+            self.n_kv_heads,
+            self.resolved_head_dim,
+            self.d_ff,
+            self.n_layers,
+        )
+        n = self.vocab * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab * d  # lm head
+        if self.family in ("dense", "moe", "vlm", "encdec"):
+            attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+            if self.family == "moe" and self.moe is not None:
+                ffn = self.moe.num_experts * 3 * d * self.moe.d_ff_expert
+                if self.moe.shared_expert:
+                    ffn += 3 * d * (self.moe.d_ff_shared or ff)
+            else:
+                ffn = 3 * d * ff
+            n += L * (attn + ffn + 2 * d)
+            if self.family == "encdec":
+                n += self.enc_layers * (attn + 3 * d * ff + 2 * d)
+                n += L * (attn + d)  # cross attn + its norm
+        elif self.family == "ssm":
+            s = self.ssm
+            inner = s.heads * s.head_dim
+            n += L * (5 * d * inner + 2 * inner + 3 * d * ff // 2 + 2 * d)
+        elif self.family == "hybrid":
+            s = self.ssm
+            inner = self.d_model * s.expand
+            mamba = d * 2 * inner + inner * s.conv_dim + inner * (
+                2 * s.state_dim
+            ) + inner * d + 2 * s.heads
+            n += L * (mamba + 2 * d)
+            attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+            n += attn + 3 * d * ff + 2 * d  # one shared block
+        return n
+
+    def active_param_count(self) -> int:
+        """Active (per-token) parameters — differs for MoE."""
+        if self.family != "moe" or self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        m = self.moe
+        total = self.param_count()
+        all_experts = L * m.num_experts * 3 * d * m.d_ff_expert
+        active = L * m.top_k * 3 * d * m.d_ff_expert
+        return total - all_experts + active
+
+
+# ---------------------------------------------------------------------------
+# registry (the archs the port serves; more come with later families)
+# ---------------------------------------------------------------------------
+
+
+def qwen3_1p7b() -> ModelConfig:
+    """qwen3-1.7b [dense]: 28L d_model=2048 16H (GQA kv=8) d_ff=6144
+    vocab=151936 — qk_norm, GQA, untied embeddings."""
+    return ModelConfig(
+        name="qwen3-1.7b",
+        family="dense",
+        n_layers=28,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=6144,
+        vocab=151_936,
+        qk_norm=True,
+        rope_theta=1_000_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 4},
+    )
+
+
+def qwen3_1p7b_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-1.7b-reduced",
+        family="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        head_dim=16,
+        d_ff=160,
+        vocab=128,
+        qk_norm=True,
+        microbatch={"train_4k": 2},
+    )
+
+
+def smollm_135m() -> ModelConfig:
+    """smollm-135m [dense]: 30L d_model=576 9H (GQA kv=3) d_ff=1536
+    vocab=49152 — llama-arch small, tied embeddings."""
+    return ModelConfig(
+        name="smollm-135m",
+        family="dense",
+        n_layers=30,
+        d_model=576,
+        n_heads=9,
+        n_kv_heads=3,
+        d_ff=1536,
+        vocab=49_152,
+        tie_embeddings=True,
+        rope_theta=10_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 8},
+    )
+
+
+def smollm_135m_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="smollm-135m-reduced",
+        family="dense",
+        n_layers=2,
+        d_model=48,
+        n_heads=3,
+        n_kv_heads=1,
+        d_ff=128,
+        vocab=128,
+        tie_embeddings=True,
+        microbatch={"train_4k": 2},
+    )
+
+
+_REGISTRY: Dict[str, Tuple] = {
+    "qwen3-1.7b": (qwen3_1p7b, qwen3_1p7b_reduced),
+    "smollm-135m": (smollm_135m, smollm_135m_reduced),
+}
+
+ARCH_IDS: Tuple[str, ...] = tuple(_REGISTRY)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[arch][0]()
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[arch][1]()

@@ -4,6 +4,10 @@ import os
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(autouse=True, scope="session")
 def _no_engine_override():
     """A lingering REPRO_SIM_ENGINE (exported by benchmarks.run --engine

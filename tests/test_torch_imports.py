@@ -1,0 +1,32 @@
+"""The port stands alone: importing every module of repro_torch, and
+chip_smoke.py, pulls in neither JAX nor the JAX package, and builds nothing."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    build_dir = ROOT / "src" / "repro_torch" / "_build"
+    before = sorted(build_dir.glob("*")) if build_dir.exists() else []
+    res = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n_modules, bad = res.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 20
+    assert bad.strip() == "[]"
+    after = sorted(build_dir.glob("*")) if build_dir.exists() else []
+    assert before == after

@@ -1,0 +1,195 @@
+"""Plain PyTorch versions of the four kernels vs the JAX oracles, over the
+shape sweeps of tests/test_kernels.py (CPU).
+
+Tolerances: fp32 3e-5; bf16 2e-2 (paged) and 3e-2 (flash) — the JAX sweep's
+own; append and compaction are copies and must be bit-exact (atol 0).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
+from repro.kernels.kv_log_append.ref import kv_log_append_ref as jax_append_ref
+from repro.kernels.log_compact.ref import log_compact_ref as jax_compact_ref
+from repro.kernels.paged_attention.kernel import paged_decode_attention_pallas
+from repro.kernels.paged_attention.ops import paged_decode_attention as jax_paged_ops
+from repro.kernels.paged_attention.ref import paged_decode_attention_ref as jax_paged_ref
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.kv_log_append.ops import kv_log_append
+from repro_torch.kernels.log_compact.ops import log_compact
+from repro_torch.kernels.paged_attention.ops import merge_log, paged_decode_attention
+
+torch.set_num_threads(2)
+
+DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(x, dtype):
+    """The same values as a JAX array and a torch tensor of one dtype."""
+    jd, td = DT[dtype]
+    j = jnp.asarray(x, jd)
+    if dtype == "bfloat16":
+        t = torch.from_numpy(np.asarray(j).view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.asarray(j).copy())
+    return j, t
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _rand(rng, shape, dtype):
+    return _pair(rng.normal(size=shape).astype(np.float32), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,KV,hd,page,P,N",
+    [(2, 4, 2, 32, 8, 8, 3), (3, 8, 4, 64, 16, 16, 4), (1, 6, 2, 16, 4, 6, 5), (4, 4, 4, 128, 8, 12, 2)],
+)
+def test_paged_attention_plain_vs_jax(B, H, KV, hd, page, P, N, dtype):
+    rng = np.random.default_rng(B * 100 + H)
+    jq, q = _rand(rng, (B, H, hd), dtype)
+    jk, kp = _rand(rng, (P, page, KV, hd), dtype)
+    jv, vp = _rand(rng, (P, page, KV, hd), dtype)
+    table = rng.choice(P, size=B * N, replace=B * N > P).reshape(B, N).astype(np.int32)
+    table[0, N - 1] = -1  # one non-resident page
+    lengths = rng.integers(1, N * page + 1, size=B).astype(np.int32)
+    ref = jax_paged_ref(jq, jk, jv, jnp.asarray(table), jnp.asarray(lengths))
+    out = paged_decode_attention(q, kp, vp, torch.from_numpy(table), torch.from_numpy(lengths))
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=tol)
+
+
+def _log_case():
+    rng = np.random.default_rng(7)
+    B, H, KV, hd, page, P, N, S = 3, 8, 4, 64, 16, 16, 4, 8
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              [(B, H, hd), (P, page, KV, hd), (P, page, KV, hd), (S, KV, hd), (S, KV, hd)]]
+    table = rng.choice(P, size=B * N, replace=False).reshape(B, N).astype(np.int32)
+    meta = np.full((S, 2), -1, np.int32)
+    meta[0], meta[1] = (1, 60), (1, 61)
+    page_lengths = np.array([48, 48, 48], np.int32)  # compaction watermark
+    lengths = np.array([48, 62, 48], np.int32)  # the log covers the rest
+    return arrays, table, meta, page_lengths, lengths
+
+
+def test_paged_attention_log_merge_vs_jax():
+    """With the write log: the plain version against the JAX oracle and the
+    JAX ops (Pallas kernel in interpret mode + jnp log merge)."""
+    (q, kp, vp, lk, lv), table, meta, plen, lengths = _log_case()
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, table, lengths, lk, lv, meta)]
+    ref = jax_paged_ref(*jargs, page_lengths=jnp.asarray(plen))
+    pallas = jax_paged_ops(*jargs, page_lengths=jnp.asarray(plen), use_pallas=True)
+    targs = [torch.from_numpy(a) for a in (q, kp, vp, table, lengths, lk, lv, meta)]
+    out = paged_decode_attention(*targs, page_lengths=torch.from_numpy(plen))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=3e-5, rtol=3e-5)
+
+
+def test_merge_log_matches_jax_combine():
+    """The log pass + flash-decoding combine that runs around the CUDA kernel
+    on the card, fed the Pallas kernel's own (out, m, l)."""
+    (q, kp, vp, lk, lv), table, meta, plen, lengths = _log_case()
+    out_p, m_p, l_p = paged_decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table), jnp.asarray(plen)
+    )
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, table, lengths, lk, lv, meta)]
+    want = jax_paged_ops(*jargs, page_lengths=jnp.asarray(plen), use_pallas=True)
+    got = merge_log(
+        torch.from_numpy(q), torch.from_numpy(np.array(out_p)), torch.from_numpy(np.array(m_p)),
+        torch.from_numpy(np.array(l_p)), torch.from_numpy(lk), torch.from_numpy(lv),
+        torch.from_numpy(meta), torch.from_numpy(lengths), torch.arange(3, dtype=torch.int32),
+    )
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-5, rtol=3e-5)
+
+
+def test_padded_row_is_finite():
+    """A padded batch row (request -1) has no valid key: finite, not NaN."""
+    (q, kp, vp, lk, lv), table, meta, _, lengths = _log_case()
+    plen = np.array([0, 48, 48], np.int32)
+    targs = [torch.from_numpy(a) for a in (q, kp, vp, table, lengths, lk, lv, meta)]
+    out = paged_decode_attention(
+        *targs, page_lengths=torch.from_numpy(plen), req_ids=torch.tensor([-1, 1, 2], dtype=torch.int32)
+    )
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16), (1, 35, 4, 2, 16)])
+def test_flash_attention_plain_vs_jax(B, S, H, KV, hd, causal, dtype):
+    rng = np.random.default_rng(S + H)
+    jq, q = _rand(rng, (B, S, H, hd), dtype)
+    jk, k = _rand(rng, (B, S, KV, hd), dtype)
+    jv, v = _rand(rng, (B, S, KV, hd), dtype)
+    ref = jax_flash_ref(jq, jk, jv, causal=causal)
+    out = flash_attention(q, k, v, causal=causal)
+    tol = 3e-2 if dtype == "bfloat16" else 3e-5
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("L,S,B,KV,hd,tail", [(2, 32, 4, 2, 16, 0), (3, 64, 8, 4, 32, 17), (1, 16, 2, 1, 8, 14)])
+def test_kv_log_append_plain_vs_jax(L, S, B, KV, hd, tail):
+    rng = np.random.default_rng(L * S)
+    jlk, lk = _rand(rng, (L, S, KV, hd), "bfloat16")
+    jlv, lv = _rand(rng, (L, S, KV, hd), "bfloat16")
+    jkn, kn = _rand(rng, (L, B, KV, hd), "bfloat16")
+    jvn, vn = _rand(rng, (L, B, KV, hd), "bfloat16")
+    req = rng.integers(0, 8, B).astype(np.int32)
+    pos = rng.integers(0, 100, B).astype(np.int32)
+    meta = np.full((S, 2), -1, np.int32)
+    rk, rv, rm, rt = jax_append_ref(jlk, jlv, jnp.asarray(meta), jnp.int32(tail), jkn, jvn,
+                                    jnp.asarray(req), jnp.asarray(pos))
+    tmeta = torch.from_numpy(meta.copy())
+    new_tail = kv_log_append(lk, lv, tmeta, tail, kn, vn, torch.from_numpy(req), torch.from_numpy(pos))
+    assert new_tail == int(rt)
+    np.testing.assert_array_equal(lk.view(torch.int16).numpy(), np.asarray(rk).view(np.int16))
+    np.testing.assert_array_equal(lv.view(torch.int16).numpy(), np.asarray(rv).view(np.int16))
+    np.testing.assert_array_equal(tmeta.numpy(), np.asarray(rm))
+
+
+def test_kv_log_append_overflow_raises():
+    lk = torch.zeros(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="overflows"):
+        kv_log_append(lk, lk.clone(), torch.zeros(8, 2, dtype=torch.int32), 6, torch.zeros(1, 3, 1, 16),
+                      torch.zeros(1, 3, 1, 16), torch.zeros(3, dtype=torch.int32), torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("L,P,page,KV,hd,S,F,seed", [
+    (2, 6, 8, 2, 16, 32, 4, 0), (1, 4, 16, 4, 32, 16, 2, 0), (2, 6, 8, 2, 16, 32, 4, 1),
+])
+def test_log_compact_plain_vs_jax(L, P, page, KV, hd, S, F, seed):
+    rng = np.random.default_rng(P * page + seed)
+    jkp, kp = _rand(rng, (L, P, page, KV, hd), "bfloat16")
+    jvp, vp = _rand(rng, (L, P, page, KV, hd), "bfloat16")
+    jlk, lk = _rand(rng, (L, S, KV, hd), "bfloat16")
+    jlv, lv = _rand(rng, (L, S, KV, hd), "bfloat16")
+    meta = np.full((S, 2), -1, np.int32)
+    # a handful of log entries over (request, position); with seed 1 the
+    # positions repeat, so "later slot wins" is exercised
+    span = P * page if seed == 0 else 3 * page
+    for i in range(S // 2):
+        meta[i] = (int(rng.integers(0, 3)), int(rng.integers(0, span)))
+    slots = rng.choice(P, size=F - 1, replace=False)
+    pairs = rng.choice(3 * 3, size=F - 1, replace=False)
+    rows = [[int(pr // 3), int(pr % 3), int(s)] for pr, s in zip(pairs, slots)] + [[-1, 0, 0]]
+    ft = np.asarray(rows, np.int32)
+    rk, rv = jax_compact_ref(jkp, jvp, jlk, jlv, jnp.asarray(meta), jnp.asarray(ft))
+    log_compact(kp, vp, lk, lv, torch.from_numpy(meta), torch.from_numpy(ft))
+    np.testing.assert_array_equal(kp.view(torch.int16).numpy(), np.asarray(rk).view(np.int16))
+    np.testing.assert_array_equal(vp.view(torch.int16).numpy(), np.asarray(rv).view(np.int16))
+
+
+def test_cpu_calls_launch_nothing():
+    """On the CPU every wrapper runs its plain version: no launch counted."""
+    reset_launch_counts()
+    q = torch.zeros(1, 4, 2, 16)
+    flash_attention(q, q[:, :, :2], q[:, :, :2])
+    assert launch_counts() == {"paged_attention": 0, "log_compact": 0, "kv_log_append": 0, "flash_attention": 0}
