@@ -9,9 +9,14 @@ Phases (any failure exits non-zero; so does a missing card):
   2. build — every kernel under src/repro_torch/csrc with nvcc (sm_90a).
   3. kernels — each kernel against its plain PyTorch version at the main
      path's full-width shapes, with times of kernel, plain version and a
-     PyTorch library call, and the least time the card could take.
+     PyTorch library call (CUDA events over back-to-back calls, and the
+     device time from a torch.profiler window), and the least time the card
+     could take. Paged attention: the whole op with the write log (two
+     launches), and the pages alone; flash attention (bf16, tensor-core
+     route) at S=381 and S=517.
   4. serving — full-width qwen3-1.7b (random weights from a seed) through
-     the port's TieredEngine: every kernel launched, ServeStats equal to the
+     the port's TieredEngine: every kernel launched as often as the
+     deterministic policy requires, every flash call on the tensor-core route, ServeStats equal to the
      reduced-width run on the CPU, every emitted token within a near-tie
      tolerance of the maximum of the dense decode's teacher-forced logits;
      tokens/s of the tiered and the dense (baseline) serving loops; then a
@@ -43,6 +48,8 @@ PEAK_BF16 = 989e12
 SEED = 0
 PROMPT_LENS = [203, 251, 298, 339, 387, 429, 466, 517]  # none a multiple of 16
 NEW_TOKENS = 48
+# the serving run's launches: the policy depends on lengths only
+EXPECTED_LAUNCHES = {"paged_attention": 3584, "log_compact": 14, "kv_log_append": 3584, "flash_attention": 224}
 NEAR_TIE = 0.125  # logits at full width reach ~4, where bf16 spacing is 1/32
 TOL = {"paged_attention": 2e-2, "flash_attention": 3e-2, "kv_log_append": 0.0, "log_compact": 0.0}
 REPLACES = {
@@ -74,7 +81,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
-    """Mean time of ``fn`` on the card (CUDA events around ``iters`` calls)."""
+    """Mean time of ``fn`` on the card (CUDA events around ``iters`` calls
+    issued back to back: for a call shorter than its host dispatch this is
+    the dispatch rate, not device time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -87,13 +96,79 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def union_ms(events) -> float:
+    """Device time covered by ``events`` (profiler kernel events), counting
+    overlapping kernels once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_start, cur_end = 0.0, None, None
+    for a, b in spans:
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total / 1e3
+
+
+def device_ms(fn, iters=10, required=True):
+    """(device ms a call, device ops a call) of ``fn`` from a short
+    torch.profiler window: the span of the kernels each call ran on the
+    card (overlapping kernels counted once), without the host's dispatch.
+    A window in which the profiler records no device op is taken again (up
+    to three times); then it fails, or gives (None, None) where the caller
+    does not require the number (a library yardstick)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                           key=lambda e: e.time_range.start)
+        if on_device and len(on_device) % iters == 0:
+            per = len(on_device) // iters
+            return sum(union_ms(on_device[i * per:(i + 1) * per]) for i in range(iters)) / iters, per
+        print(f"  (the profiler saw {len(on_device)} device ops in {iters} calls; taking the window again)")
+    if required:
+        raise AssertionError("the profiler saw no whole calls on the device in three windows")
+    return None, None
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def timed(kernel, plain, library, err, bound):
+    """One row of phase 3: CUDA-event and profiler times of the kernel, its
+    plain version and the library yardstick."""
+    dev, ops = device_ms(kernel)
+    return dict(
+        max_abs_err=err, ms=cuda_ms(kernel), device_ms=dev, device_ops=ops, plain_ms=cuda_ms(plain),
+        library_ms=None if library is None else cuda_ms(library),
+        library_device_ms=None if library is None else device_ms(library, required=False)[0], bound=bound,
+    )
+
+
+def check_close(name, got, want, tol):
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: max abs err {err} (tol {tol})")
+    return err
+
+
 def check_kernels(full):
     """Phase 3: each kernel vs its plain version at full-width shapes."""
+    from repro_torch.kernels import reset_launch_counts, route_counts
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.kv_log_append.ops import kv_log_append
@@ -136,47 +211,71 @@ def check_kernels(full):
     table, meta = table.to(dev), meta.to(dev)
     lengths = plen + torch.tensor(n_log, dtype=torch.int32, device=dev)
     args = (q, pool_k, pool_v, table, lengths, log_k, log_v, meta)
-    got = paged_decode_attention(*args, page_lengths=plen, req_ids=req)
+    live = req >= 0
+
+    def op():
+        return paged_decode_attention(*args, page_lengths=plen, req_ids=req)
+
+    reset_launch_counts()
+    got = op()
     want = paged_decode_attention_ref(*args, page_lengths=plen, req_ids=req)
-    torch.cuda.synchronize()
+    err = check_close("paged attention (with the log)", got[live], want[live], TOL["paged_attention"])
     if not torch.isfinite(got).all():
         raise AssertionError("paged attention: non-finite output (padded row?)")
-    live = req >= 0
-    err = (got[live].float() - want[live].float()).abs().max().item()
-    if not torch.allclose(got[live].float(), want[live].float(), atol=TOL["paged_attention"], rtol=TOL["paged_attention"]):
-        raise AssertionError(f"paged attention: max abs err {err}")
-    gk = pool_k[table.clamp(min=0).long()].reshape(B, N * page, KV, hd).repeat_interleave(g, 2).transpose(1, 2)
-    gv = pool_v[table.clamp(min=0).long()].reshape(B, N * page, KV, hd).repeat_interleave(g, 2).transpose(1, 2)
-    mask = (torch.arange(N * page, device=dev)[None] < plen[:, None])[:, None, None, :]
-    valid_tok = int(plen.sum())
+    # the yardstick: sdpa over pre-gathered pages with the valid log rows
+    # concatenated, under the same mask (the gather stays outside the timing)
+    gk = pool_k[table.clamp(min=0).long()].reshape(B, N * page, KV, hd)
+    gv = pool_v[table.clamp(min=0).long()].reshape(B, N * page, KV, hd)
+    page_mask = torch.arange(N * page, device=dev)[None] < plen[:, None]
+    log_valid = (meta[None, :, 0] == req[:, None]) & (req[:, None] >= 0) & (meta[None, :, 1] < lengths[:, None])
+    ck = torch.cat([gk, log_k[None].expand(B, S_log, KV, hd)], 1).repeat_interleave(g, 2).transpose(1, 2)
+    cv = torch.cat([gv, log_v[None].expand(B, S_log, KV, hd)], 1).repeat_interleave(g, 2).transpose(1, 2)
+    cmask = torch.cat([page_mask, log_valid], 1)[:, None, None, :]
+    valid_tok, valid_log = int(plen.sum()), int(log_valid.sum())
+    nbytes = (2 * (valid_tok + valid_log) * KV * hd * 2 + 2 * q.numel() * 2 + table.numel() * 4
+              + meta.numel() * 4 + 3 * B * 4)
+    rows["paged_attention"] = timed(
+        op, lambda: paged_decode_attention_ref(*args, page_lengths=plen, req_ids=req),
+        lambda: sdpa(q[:, :, None], ck, cv, attn_mask=cmask), err,
+        bound_ms(nbytes, 4.0 * H * hd * (valid_tok + valid_log)),
+    )
+    if rows["paged_attention"]["device_ops"] != 2:
+        raise AssertionError(f"paged attention: {rows['paged_attention']['device_ops']} device ops a call, want 2")
+    # the kernels without the log (the page pass alone, as timed before the log was fused)
+    got = paged_attention_pages(q, pool_k, pool_v, table, plen)
+    want = paged_decode_attention_ref(q, pool_k, pool_v, table, plen)
+    err = check_close("paged attention (pages)", got[:3], want[:3], TOL["paged_attention"])
+    gkt, gvt = gk.repeat_interleave(g, 2).transpose(1, 2), gv.repeat_interleave(g, 2).transpose(1, 2)
     nbytes = 2 * valid_tok * KV * hd * 2 + 2 * q.numel() * 2 + table.numel() * 4 + B * 4
-    rows["paged_attention"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: paged_attention_pages(q, pool_k, pool_v, table, plen)),
-        plain_ms=cuda_ms(lambda: paged_decode_attention_ref(q, pool_k, pool_v, table, plen)),
-        library_ms=cuda_ms(lambda: sdpa(q[:, :, None], gk, gv, attn_mask=mask)),
-        bound=bound_ms(nbytes, 4.0 * H * hd * valid_tok),
-    )
+    rows["paged_attention"]["extra"] = [dict(
+        shape="pages only (paged_attention_pages)",
+        **timed(lambda: paged_attention_pages(q, pool_k, pool_v, table, plen),
+                lambda: paged_decode_attention_ref(q, pool_k, pool_v, table, plen),
+                lambda: sdpa(q[:, :, None], gkt, gvt, attn_mask=page_mask[:, None, None, :]), err,
+                bound_ms(nbytes, 4.0 * H * hd * valid_tok)),
+    )]
 
-    # ---- flash attention: one layer of a prefill at a ragged length ----
-    S = 381
-    fq, fk, fv = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
-    got = flash_attention(fq, fk, fv, causal=True)
-    want = flash_attention_ref(fq, fk, fv, causal=True)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not torch.allclose(got.float(), want.float(), atol=TOL["flash_attention"], rtol=TOL["flash_attention"]):
-        raise AssertionError(f"flash attention: max abs err {err}")
-    qt = fq.transpose(1, 2)
-    kt, vt = fk.repeat_interleave(g, 2).transpose(1, 2), fv.repeat_interleave(g, 2).transpose(1, 2)
-    pairs = S * (S + 1) // 2
-    rows["flash_attention"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: flash_attention(fq, fk, fv, causal=True)),
-        plain_ms=cuda_ms(lambda: flash_attention_ref(fq, fk, fv, causal=True)),
-        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
-        bound=bound_ms(2 * (2 * fq.numel() + 2 * fk.numel()), 4.0 * H * hd * pairs),
-    )
+    # ---- flash attention: one layer of a prefill at ragged lengths ----
+    flash_rows = []
+    for S in (381, 517):  # phase 3's prompt, and the longest prompt of the run
+        fq, fk, fv = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+        reset_launch_counts()
+        got = flash_attention(fq, fk, fv, causal=True)
+        if route_counts() != {"tensor_core": 1, "cuda_core": 0}:
+            raise AssertionError(f"flash attention (bf16) did not take the tensor-core route: {route_counts()}")
+        want = flash_attention_ref(fq, fk, fv, causal=True)
+        err = check_close(f"flash attention S={S}", got, want, TOL["flash_attention"])
+        qt = fq.transpose(1, 2)
+        kt, vt = fk.repeat_interleave(g, 2).transpose(1, 2), fv.repeat_interleave(g, 2).transpose(1, 2)
+        pairs = S * (S + 1) // 2
+        flash_rows.append(dict(shape=f"S={S}", **timed(
+            lambda: flash_attention(fq, fk, fv, causal=True),
+            lambda: flash_attention_ref(fq, fk, fv, causal=True),
+            lambda: sdpa(qt, kt, vt, is_causal=True), err,
+            bound_ms(2 * (2 * fq.numel() + 2 * fk.numel()), 4.0 * H * hd * pairs),
+        )))
+    rows["flash_attention"] = flash_rows[0]
+    rows["flash_attention"]["extra"] = flash_rows[1:]
 
     # ---- kv log append: one layer of a decode step's write ----
     tail = 20
@@ -195,16 +294,16 @@ def check_kernels(full):
             raise AssertionError("kv_log_append: kernel and plain version differ")
     lk, lv, lm = outs[0]
 
-    def library_append():
+    def library_append():  # the same function: K, V and both meta columns
         lk[:, tail:tail + B].copy_(k_new)
         lv[:, tail:tail + B].copy_(v_new)
+        lm[tail:tail + B, 0].copy_(req)
+        lm[tail:tail + B, 1].copy_(pos)
 
-    rows["kv_log_append"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: kv_log_append(lk, lv, lm, tail, k_new, v_new, req, pos)),
-        plain_ms=cuda_ms(lambda: kv_log_append_ref(lk, lv, lm, tail, k_new, v_new, req, pos)),
-        library_ms=cuda_ms(library_append),
-        bound=bound_ms(2 * 2 * k_new.numel() * 2 + 4 * B * 4, 0.0),
+    rows["kv_log_append"] = timed(
+        lambda: kv_log_append(lk, lv, lm, tail, k_new, v_new, req, pos),
+        lambda: kv_log_append_ref(lk, lv, lm, tail, k_new, v_new, req, pos),
+        library_append, 0.0, bound_ms(2 * 2 * k_new.numel() * 2 + 4 * B * 4, 0.0),
     )
 
     # ---- log compaction: a full log of 4 requests into the fast pool ----
@@ -226,26 +325,32 @@ def check_kernels(full):
             raise AssertionError("log_compact: kernel and plain version differ")
     pk, pv = outs[0]
     moved = L * S_log * KV * hd * 2 * 2  # every log row matches one target here
-    rows["log_compact"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: log_compact(pk, pv, lk, lv, cmeta, targets)),
-        plain_ms=cuda_ms(lambda: log_compact_ref(pk, pv, lk, lv, cmeta, targets)),
-        library_ms=None,
-        bound=bound_ms(2 * moved + cmeta.numel() * 4 + targets.numel() * 4, 0.0),
+    rows["log_compact"] = timed(
+        lambda: log_compact(pk, pv, lk, lv, cmeta, targets),
+        lambda: log_compact_ref(pk, pv, lk, lv, cmeta, targets),
+        None, 0.0, bound_ms(2 * moved + cmeta.numel() * 4 + targets.numel() * 4, 0.0),
     )
     del ck, cv, pk, pv, outs
     torch.cuda.empty_cache()
+
+    def show(name, r):
+        lib_dev = "not measured" if r["library_device_ms"] is None else f"{r['library_device_ms']:.4f}"
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms (device {lib_dev})"
+        print(f"  {name:34s} err {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
+              f"{r['device_ops']:.0f} ops)  plain {r['plain_ms']:.4f} ms  library {lib}  "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+
     for name, r in rows.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {name:16s} err {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {lib} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        show(name + (f" {r['shape']}" if "shape" in r else ""), r)
+        for x in r.get("extra", []):
+            show(f"{name} {x['shape']}", x)
     return rows
 
 
 def serve(full, reduced, card):
     """Phase 4: full-width qwen3-1.7b through the port's TieredEngine."""
     from repro_torch.core.tiering import TieredKVConfig
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
     from repro_torch.launch.serve import baseline_serve, dense_decode
     from repro_torch.models.api import ModelSpec
     from repro_torch.serving.engine import Request, TieredEngine
@@ -276,14 +381,19 @@ def serve(full, reduced, card):
     del warm
     reset_launch_counts()
     eng, stats, dt = run_engine(spec, params, full.vocab, "cuda")
-    counts = launch_counts()
-    print(f"  stats {vars(stats)}; launches {counts}")
+    counts, routes = launch_counts(), route_counts()
+    print(f"  stats {vars(stats)}; launches {counts} (paged attention: calls, two launches each); "
+          f"flash routes {routes}")
     if not all(r.done for r in eng.requests.values()):
         raise AssertionError("not every request finished")
     if min(stats.parks, stats.evicted_pages, stats.compactions) <= 0:
         raise AssertionError("the run must park, evict and compact")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if counts != EXPECTED_LAUNCHES:
+        raise AssertionError(f"launch counts {counts} differ from {EXPECTED_LAUNCHES}")
+    if routes["tensor_core"] != counts["flash_attention"]:
+        raise AssertionError(f"a flash attention call of the run missed the tensor-core route: {routes}")
 
     # (b) the policy depends on lengths only: the reduced CPU run agrees
     rspec = ModelSpec(reduced)
@@ -330,16 +440,19 @@ def serve(full, reduced, card):
             eng.step()
         torch.cuda.synchronize()
     on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in on_device) / 4e3
+    busy_ms = union_ms(on_device) / 4
     by_name = {}
     for e in on_device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 4e3
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+    paged_ms = union_ms([e for e in on_device if "paged_split_kernel" in e.name or "paged_combine_kernel" in e.name]) / 4
+    sum_ms = sum(e.time_range.elapsed_us() for e in on_device) / 4e3
     print(f"  decode step (untraced) {step_ms:.2f} ms; device busy {busy_ms:.3f} ms/step "
-          f"({len(on_device) / 4:.0f} device ops/step); idle share {1 - busy_ms / step_ms:.3f} — on {card}")
+          f"(sum of kernel times {sum_ms:.3f}; {len(on_device) / 4:.0f} device ops/step); idle share {1 - busy_ms / step_ms:.3f}; "
+          f"paged attention {paged_ms:.4f} ms/step — on {card}")
     for name, ms in top:
         print(f"    {ms:8.4f} ms/step  {name[:90]}")
-    return counts
+    return counts, routes
 
 
 def main() -> int:
@@ -365,16 +478,26 @@ def main() -> int:
     with phase("kernels"):
         rows = check_kernels(full)
     with phase("serving"):
-        counts = serve(full, reduced, card)
+        counts, routes = serve(full, reduced, card)
     kernels = []
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
     for name in ("paged_attention", "log_compact", "kv_log_append", "flash_attention"):
         r = rows[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"],
-        })
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
+        }
+        if "shape" in r:
+            entry["shape"] = r["shape"]
+        if r.get("extra"):
+            entry["extra"] = [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "bound_ms": x["bound"][0],
+                               **{k: x[k] for k in keys}} for x in r["extra"]]
+        kernels.append(entry)
+    kernels[0]["launches_per_call"] = 2
+    kernels[3]["tensor_core_launches"] = routes["tensor_core"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,21 +4,44 @@
 // (pallas_call at kernel.py:107, body _kernel at :21).
 //
 // q (B, S, H, hd), k/v (B, S_kv, KV, hd) -> out (B, S, H, hd); query head h
-// reads KV head h / (H / KV). Online softmax in fp32; key tiles above a
-// query tile's causal diagonal are skipped. Unlike the Pallas kernel
-// (kernel.py:100) the lengths need not be multiples of the tile: the ragged
-// edge is masked here, since prompt lengths are arbitrary.
+// reads KV head h / (H / KV). Online softmax in fp32 with the finite -1e30
+// mask; key tiles above a query tile's causal diagonal are skipped. Unlike
+// the Pallas kernel (kernel.py:100) the lengths need not be multiples of the
+// tile: the ragged edge is masked here, since prompt lengths are arbitrary.
 //
-// Bound: at the card's bf16 tensor rate, bytes below S ~ 900 (GQA 16/8
-// does about S/3 FLOPs per byte moved; the card needs ~295). This kernel
-// runs on the fp32 CUDA cores (67 TFLOP/s), which bound it in practice.
-// Design: one block per
-// (32-query tile, head, batch), a loop over 32-key tiles inside it (the
-// TPU's sequential k grid axis). Q, K and V tiles are widened to fp32 in
-// shared memory; each thread computes a 2x4 block of scores and owns a 4x8
-// block of the output accumulator, so every shared-memory value it loads
-// feeds several FMAs. A tensor-core (wgmma/TMA) version is later work.
+// Two kernels, chosen by dtype (the wrapper names the route; a call the
+// chosen kernel refuses raises, nothing falls back):
+//
+// * bf16 -> flash_attention_wgmma_kernel, the tensor-core route. Bound: at
+//   the card's bf16 tensor rate, bytes below S ~ 900 (GQA 16/8 does about
+//   S/3 FLOPs per byte; the card needs ~295), so the design keeps the
+//   tensor cores fed and every byte read once from device memory:
+//   - one block per (64-query tile, query head, batch row), the heaviest
+//     causal tiles handed out first; the g query heads of a KV head are
+//     neighbouring blocks and share its K/V through L2;
+//   - a producer warp whose one thread brings Q and a 6-stage ring of 64-key
+//     K and V tiles into shared memory by TMA (4-D tensor maps, swizzle from
+//     hd * 2 bytes), completion on mbarriers; the ragged tail is zero-filled
+//     by TMA and masked here;
+//   - three consumer warpgroups that take the key tiles of the query tile in
+//     turn, each with its own online softmax, merged through shared memory
+//     at the end: the heaviest causal tile's chain of dependent key tiles is
+//     cut by three, and one warpgroup's softmax overlaps another's wgmma;
+//   - S = Q.K^T by wgmma m64n64k16 (bf16 in, fp32 accumulators in
+//     registers, Q resident in shared memory), online softmax in registers
+//     (quad shuffles over the accumulator layout), O += P.V by wgmma with P
+//     in registers as the A operand and V the transposed (MN-major) B.
+//   Numerics: P is rounded to bf16 before P.V (the Pallas kernel keeps it in
+//   fp32, kernel.py:68-72); the row sums l are taken from the fp32 P.
+// * fp32 -> flash_attention_kernel, the CUDA-core route: a tolerance of
+//   3e-5 does not survive TF32 or bf16 rounding. One block per (32-query
+//   tile, head, batch), a loop over 32-key tiles inside it (the TPU's
+//   sequential k grid axis); tiles in fp32 shared memory, each thread a 2x4
+//   block of scores and a 4x8 block of the output accumulator.
 #include "common.cuh"
+#include "hopper.cuh"
+
+// ---- fp32: CUDA cores -------------------------------------------------------
 
 constexpr int FA_THREADS = 128;
 constexpr int FA_BQ = 32;  // query rows per block
@@ -175,29 +198,314 @@ __global__ void __launch_bounds__(FA_THREADS)
   }
 }
 
-template <typename T>
+
+// ---- bf16: tensor cores (wgmma + TMA) ---------------------------------------
+
+namespace tc {
+constexpr int BQ = 64;        // query rows per block (one wgmma M)
+constexpr int BK = 64;        // keys per K/V tile
+constexpr int NWG = 3;                   // consumer warpgroups, taking key tiles in turn
+constexpr int THREADS = NWG * 128 + 32;  // consumer warpgroups, then the producer warp
+constexpr int STAGES = 2 * NWG;          // K/V ring depth: two tiles for each warpgroup
+
+template <int HD>
+struct Cfg {
+  static constexpr int W = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span (bytes of a row block)
+  static constexpr int E = W / 2;                         // bf16 elements of a row block
+  static constexpr int CB = HD / E;                       // row blocks of a head vector
+  static constexpr int TILE = 64 * HD * 2;                // bytes of a 64-row tile
+  static constexpr int LAYOUT = W == 128 ? 1 : (W == 64 ? 2 : 3);  // descriptor swizzle
+  static constexpr int SMEM = (1 + 2 * STAGES) * TILE + 256 + 1024;  // Q, K and V rings, barriers, alignment
+  static_assert((NWG - 1) * (HD / 2 + 4) * 128 * 4 <= 2 * STAGES * TILE, "merge area exceeds the ring");
+};
+
+// A 64-row tile lies in shared memory as CB blocks of [64 rows][W bytes],
+// each swizzled by TMA. K-major operand (Q, K) at k step kk (16 columns).
+template <int HD>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  using C = Cfg<HD>;
+  const uint32_t off = (kk * 32 / C::W) * (64 * C::W) + (kk * 32) % C::W;
+  return wgmma_desc(tile + off, 16, 8 * C::W, C::LAYOUT);
+}
+
+// V as the MN-major (transposed) B operand of P.V at k step kk (16 keys):
+// leading offset = the next block of E head dims, stride = the next 8 keys.
+template <int HD>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  using C = Cfg<HD>;
+  return wgmma_desc(tile + kk * 16 * C::W, 64 * C::W, 8 * C::W, C::LAYOUT);
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db) {
+  if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
+  else wgmma_rs_n16(o, a, db);
+}
+
+// S = Q.K^T of one K tile into sc: issued and committed, not waited for.
+template <int HD>
+__device__ __forceinline__ void issue_qk(float* sc, uint32_t q_tile, uint32_t k_tile) {
+  fence_regs<32>(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss_n64(sc, kmajor_desc<HD>(q_tile, kk), kmajor_desc<HD>(k_tile, kk), kk);
+  wgmma_commit();
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 __nv_bfloat16* __restrict__ out, int S, int S_kv, int H, int KV,
+                                 int causal, float scale_log2) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;  // swizzled tiles need 1024-byte alignment
+  const uint32_t k_s = q_s + C::TILE, v_s = q_s + (1 + STAGES) * C::TILE;
+  const uint32_t bar = q_s + (1 + 2 * STAGES) * C::TILE;  // q_full, kfull[], vfull[], empty[]
+  const uint32_t q_full = bar;
+#define KFULL(s) (bar + 8 + 8 * (s))
+#define VFULL(s) (bar + 8 + 8 * STAGES + 8 * (s))
+#define EMPTY(s) (bar + 8 + 16 * STAGES + 8 * (s))
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int kvh = h / (H / KV);
+  const int k_end = causal ? min(S_kv, q0 + BQ) : S_kv;
+  const int n_kt = (k_end + BK - 1) / BK;
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(KFULL(s), 1);
+      mbar_init(VFULL(s), 1);
+      mbar_init(EMPTY(s), 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NWG * 128) {  // producer warp: one thread issues every copy
+    if (tid == NWG * 128) {
+      mbar_expect_tx(q_full, C::TILE);
+#pragma unroll
+      for (int cb = 0; cb < C::CB; ++cb)
+        tma_load_4d(q_s + cb * 64 * C::W, &tq, q_full, cb * C::E, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(EMPTY(s), (j / STAGES - 1) & 1);  // tile j - STAGES consumed
+        mbar_expect_tx(KFULL(s), C::TILE);
+#pragma unroll
+        for (int cb = 0; cb < C::CB; ++cb)
+          tma_load_4d(k_s + s * C::TILE + cb * 64 * C::W, &tk, KFULL(s), cb * C::E, kvh, j * BK, b);
+        mbar_expect_tx(VFULL(s), C::TILE);
+#pragma unroll
+        for (int cb = 0; cb < C::CB; ++cb)
+          tma_load_4d(v_s + s * C::TILE + cb * 64 * C::W, &tv, VFULL(s), cb * C::E, kvh, j * BK, b);
+      }
+    }
+    return;
+  }
+
+  // NWG consumer warpgroups split the key tiles of the query tile between
+  // them (tile j to warpgroup j % NWG), which cuts the chain of dependent
+  // tiles of the heaviest causal tiles by NWG; while one warpgroup runs its
+  // softmax another's wgmma keeps the tensor cores busy. Warpgroups 1.. hand
+  // their (m, l, O) to warpgroup 0 through shared memory at the end.
+  // A thread holds rows rA, rB = rA + 8 of the 64-row tile, in the wgmma
+  // accumulator layout (register i: row (i >> 1) & 1, column
+  // (i >> 2) * 8 + (lane & 3) * 2 + (i & 1)).
+  const int wg = tid >> 7, t = tid & 127, wwarp = t >> 5;
+  const int rA = q0 + wwarp * 16 + (lane >> 2), rB = rA + 8;
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.f, l1 = 0.f;
+  float sc[32];
+  mbar_wait(q_full, 0);
+
+  for (int j = wg; j < n_kt; j += NWG) {
+    const int s = j % STAGES;
+    const uint32_t ph = (j / STAGES) & 1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    mbar_wait(KFULL(s), ph);
+    issue_qk<HD>(sc, q_s, k_s + s * C::TILE);
+    wgmma_wait<0>();
+    fence_regs<32>(sc);
+
+    // mask, scale (log2 domain) and the online softmax, in registers
+    const int k0 = j * BK;
+    uint32_t ok = 0;
+    float mx0 = REPRO_NEG_INF, mx1 = REPRO_NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+      const int r = (i & 2) ? rB : rA;
+      const bool valid = c < S_kv && (!causal || c <= r);
+      sc[i] = valid ? sc[i] * scale_log2 : REPRO_NEG_INF;
+      ok |= (valid ? 1u : 0u) << i;
+      if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+      else mx0 = fmaxf(mx0, sc[i]);
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {  // the 4 lanes of a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      // masked weights are exactly 0: a fully masked row stays a finite 0
+      const float p = ((ok >> i) & 1u) ? exp2f(sc[i] - ((i & 2) ? mn1 : mn0)) : 0.f;
+      sc[i] = p;
+      if (i & 2) ps1 += p;
+      else ps0 += p;
+    }
+    l0 = l0 * al0 + ps0;  // per-thread partial sums; the row sum is taken at the end
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? al1 : al0;
+    // P as the A operand: the accumulator layout of 16 key columns is the
+    // register-A fragment layout of one k16 step
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      a[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      a[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      a[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    mbar_wait(VFULL(s), ph);
+    fence_regs<HD / 2>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv<HD>(o, a[kk], mnmajor_desc<HD>(v_s + s * C::TILE, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(o);
+    mbar_arrive(EMPTY(s));
+  }
+#undef KFULL
+#undef VFULL
+#undef EMPTY
+
+#pragma unroll
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  // warpgroups 1.. -> warpgroup 0 through the K/V ring, which no copy writes
+  // any more once every warpgroup has consumed its tiles; [value][thread]
+  constexpr int X = (HD / 2 + 4) * 128;  // floats a warpgroup hands over
+  float* xs = reinterpret_cast<float*>(smem_raw + (k_s - raw));
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
+  if (wg > 0) {
+    float* x = xs + (wg - 1) * X + t;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) x[i * 128] = o[i];
+    x[(HD / 2 + 0) * 128] = m0;
+    x[(HD / 2 + 1) * 128] = m1;
+    x[(HD / 2 + 2) * 128] = l0;
+    x[(HD / 2 + 3) * 128] = l1;
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
+  if (wg > 0) return;
+  float M0 = m0, M1 = m1;
+  for (int w = 1; w < NWG; ++w) {
+    M0 = fmaxf(M0, xs[(w - 1) * X + (HD / 2 + 0) * 128 + t]);
+    M1 = fmaxf(M1, xs[(w - 1) * X + (HD / 2 + 1) * 128 + t]);
+  }
+  const float a0 = exp2f(m0 - M0), a1 = exp2f(m1 - M1);
+  float L0 = a0 * l0, L1 = a1 * l1;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+  for (int w = 1; w < NWG; ++w) {
+    const float* x = xs + (w - 1) * X + t;
+    const float b0 = exp2f(x[(HD / 2 + 0) * 128] - M0), b1 = exp2f(x[(HD / 2 + 1) * 128] - M1);
+    L0 += b0 * x[(HD / 2 + 2) * 128];
+    L1 += b1 * x[(HD / 2 + 3) * 128];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = fmaf((i & 2) ? b1 : b0, x[i * 128], o[i]);
+  }
+  const float inv0 = 1.f / fmaxf(L0, 1e-30f), inv1 = 1.f / fmaxf(L1, 1e-30f);
+#pragma unroll
+  for (int jj = 0; jj < HD / 8; ++jj) {
+    const int col = jj * 8 + (lane & 3) * 2;
+    if (rA < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * S + rA) * H + h) * HD + col) =
+          __floats2bfloat162_rn(o[4 * jj] * inv0, o[4 * jj + 1] * inv0);
+    if (rB < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * S + rB) * H + h) * HD + col) =
+          __floats2bfloat162_rn(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
+  }
+}
+
+template <int HD>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int S_kv,
-                  int H, int KV, int hd, int causal, cudaStream_t stream) {
+                  int H, int KV, int causal, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const CUtensorMapSwizzle swz = C::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  if (!encode_bf16_4d(&tq, q, HD, H, S, B, C::E, BQ, swz) ||
+      !encode_bf16_4d(&tk, k, HD, KV, S_kv, B, C::E, BK, swz) ||
+      !encode_bf16_4d(&tv, v, HD, KV, S_kv, B, C::E, BK, swz))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int granted = 0;
+  cudaError_t err = ensure_smem(flash_attention_wgmma_kernel<HD>, C::SMEM, granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(H, (S + BQ - 1) / BQ, B);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
+  flash_attention_wgmma_kernel<HD><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, S_kv, H, KV, causal, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace tc
+
+// ---- entry points ------------------------------------------------------------
+
+// fp32 on the CUDA cores.
+extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* out,
+                                         int B, int S, int S_kv, int H, int KV, int hd, int causal,
+                                         void* stream) {
+  if (hd > FA_MAX_HD || hd % 16 != 0 || S <= 0 || S_kv <= 0 || H % KV != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (FA_BQ * (hd + 1) + FA_BK * (hd + 1) + FA_BK * hd + FA_BQ * (FA_BK + 1) +
                     3 * FA_BQ) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int granted = 0;
+  cudaError_t err = ensure_smem(flash_attention_kernel<float>, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
-  flash_attention_kernel<T><<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, S_kv, H, KV, hd, causal);
+  flash_attention_kernel<float><<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, S_kv, H, KV, hd, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                                     int S, int S_kv, int H, int KV, int hd, int causal, int dtype,
-                                     void* stream) {
-  if (hd > FA_MAX_HD || hd % 16 != 0 || S <= 0 || S_kv <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+// bf16 on the tensor cores; hd in {16, 32, 64, 128}.
+extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                          int B, int S, int S_kv, int H, int KV, int hd,
+                                          int causal, void* stream) {
+  if (S <= 0 || S_kv <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_BF16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
-  if (dtype == REPRO_F32) return launch<float>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return tc::launch<16>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
+    case 32: return tc::launch<32>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
+    case 64: return tc::launch<64>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
+    case 128: return tc::launch<128>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

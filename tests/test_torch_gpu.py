@@ -4,7 +4,9 @@ Marked ``gpu``: each test skips (inside its fixture) where no CUDA card is
 visible. On a machine with one:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 Tolerances as in tests/test_torch_kernels.py: fp32 3e-5, bf16 2e-2 (paged)
-and 3e-2 (flash), append and compaction bit-exact.
+and 3e-2 (flash), append and compaction bit-exact. bf16 flash attention runs
+on the tensor-core route and fp32 on the CUDA-core route; the tests assert
+which.
 """
 import numpy as np
 import pytest
@@ -12,15 +14,15 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.core.tiering import TieredKVConfig
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.kv_log_append.ops import kv_log_append
 from repro_torch.kernels.kv_log_append.ref import kv_log_append_ref
 from repro_torch.kernels.log_compact.ops import log_compact
 from repro_torch.kernels.log_compact.ref import log_compact_ref
-from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.paged_attention.ops import _paged_attention_cuda, paged_decode_attention
+from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref, paged_decode_attention_split_ref
 from repro_torch.launch.serve import dense_decode
 from repro_torch.models.api import ModelSpec
 from repro_torch.serving.engine import Request, TieredEngine
@@ -94,6 +96,39 @@ def test_paged_attention_log_merge_and_padded_row(cuda):
     assert torch.isfinite(got[3]).all()  # no valid key at all: finite, not NaN
 
 
+@pytest.mark.parametrize("pages_per_split", [None, 3, 7])
+def test_paged_attention_full_width_splits(cuda, pages_per_split):
+    """Full width (q (4,16,128), pool (96,16,8,128), table (4,40), log of 64):
+    3 pages a split leaves a partial last split; row 2 has length 0 and no
+    log (every split empty); row 3 is padding."""
+    rng = np.random.default_rng(12)
+    B, H, KV, hd, page, P, N, S = 4, 16, 8, 128, 16, 96, 40, 64
+    q = _rand(rng, (B, H, hd), "bfloat16", cuda)
+    kp, vp = _rand(rng, (P, page, KV, hd), "bfloat16", cuda), _rand(rng, (P, page, KV, hd), "bfloat16", cuda)
+    lk, lv = _rand(rng, (S, KV, hd), "bfloat16", cuda), _rand(rng, (S, KV, hd), "bfloat16", cuda)
+    table = np.full((B, N), -1, np.int32)
+    table[0, :31] = rng.choice(P, 31, replace=False)
+    table[1, :25] = rng.choice(P, 25, replace=False)
+    plen = np.array([490, 400, 0, 0], np.int32)
+    meta = np.full((S, 2), -1, np.int32)
+    for i, slot in enumerate(rng.permutation(S)[:20]):
+        meta[slot] = (0, 490 + i) if i < 10 else (1, 400 + i - 10)
+    lengths = np.array([500, 410, 0, 0], np.int32)
+    req = np.array([0, 1, 2, -1], np.int32)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    args = (q, kp, vp, t(table), t(lengths), lk, lv, t(meta))
+    reset_launch_counts()
+    got = _paged_attention_cuda(q, kp, vp, t(table), t(plen), lk, lv, t(meta), t(lengths), t(req),
+                                pages_per_split=pages_per_split)
+    assert launch_counts()["paged_attention"] == 1
+    want = paged_decode_attention_ref(*args, page_lengths=t(plen), req_ids=t(req))
+    _close(got[:2], want[:2], 2e-2)
+    split = paged_decode_attention_split_ref(*args, page_lengths=t(plen), req_ids=t(req),
+                                             pages_per_split=pages_per_split or 2)
+    _close(got, split, 2e-2)
+    assert torch.equal(got[2:].float(), torch.zeros_like(got[2:].float()))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,KV,hd", [
@@ -107,7 +142,36 @@ def test_flash_attention_kernel(cuda, B, S, H, KV, hd, causal, dtype):
     reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
     assert launch_counts()["flash_attention"] == 1
+    route = "tensor_core" if dtype == "bfloat16" else "cuda_core"
+    assert route_counts()[route] == 1
     _close(got, flash_attention_ref(q, k, v, causal=causal), 3e-2 if dtype == "bfloat16" else 3e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [13, 35, 64, 381, 517])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attention_tensor_cores(cuda, hd, g, S, causal):
+    """bf16 through the wgmma route: every head dim it takes, GQA groups of
+    1-4 query heads, ragged and whole tiles up to the longest prompt."""
+    KV = 2
+    rng = np.random.default_rng(hd * 1000 + g * 100 + S)
+    q = _rand(rng, (1, S, g * KV, hd), "bfloat16", cuda)
+    k, v = _rand(rng, (1, S, KV, hd), "bfloat16", cuda), _rand(rng, (1, S, KV, hd), "bfloat16", cuda)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert route_counts() == {"tensor_core": 1, "cuda_core": 0}
+    _close(got, flash_attention_ref(q, k, v, causal=causal), 3e-2)
+
+
+def test_flash_attention_fp32_cuda_cores(cuda):
+    rng = np.random.default_rng(3)
+    q = _rand(rng, (1, 381, 16, 128), "float32", cuda)
+    k, v = _rand(rng, (1, 381, 8, 128), "float32", cuda), _rand(rng, (1, 381, 8, 128), "float32", cuda)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    assert route_counts() == {"tensor_core": 0, "cuda_core": 1}
+    _close(got, flash_attention_ref(q, k, v, causal=True), 3e-5)
 
 
 @pytest.mark.parametrize("L,S,B,KV,hd,tail", [

@@ -20,7 +20,8 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.kv_log_append.ops import kv_log_append
 from repro_torch.kernels.log_compact.ops import log_compact
-from repro_torch.kernels.paged_attention.ops import merge_log, paged_decode_attention
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention, split_plan
+from repro_torch.kernels.paged_attention.ref import combine_ref, paged_decode_attention_split_ref
 
 torch.set_num_threads(2)
 
@@ -94,20 +95,78 @@ def test_paged_attention_log_merge_vs_jax():
 
 
 def test_merge_log_matches_jax_combine():
-    """The log pass + flash-decoding combine that runs around the CUDA kernel
-    on the card, fed the Pallas kernel's own (out, m, l)."""
+    """The plain combine (the CUDA combine kernel's algorithm) fed the Pallas
+    kernel's page pass as a single split (acc = out * l), merged with the
+    write log, against the JAX ops (Pallas in interpret mode + jnp merge)."""
     (q, kp, vp, lk, lv), table, meta, plen, lengths = _log_case()
     out_p, m_p, l_p = paged_decode_attention_pallas(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table), jnp.asarray(plen)
     )
     jargs = [jnp.asarray(a) for a in (q, kp, vp, table, lengths, lk, lv, meta)]
     want = jax_paged_ops(*jargs, page_lengths=jnp.asarray(plen), use_pallas=True)
-    got = merge_log(
-        torch.from_numpy(q), torch.from_numpy(np.array(out_p)), torch.from_numpy(np.array(m_p)),
-        torch.from_numpy(np.array(l_p)), torch.from_numpy(lk), torch.from_numpy(lv),
+    B, H, hd = q.shape
+    KV = kp.shape[2]
+    g = H // KV
+    m = torch.from_numpy(np.array(m_p)).reshape(B, KV, 1, g)
+    l = torch.from_numpy(np.array(l_p)).reshape(B, KV, 1, g)
+    acc = torch.from_numpy(np.array(out_p)).reshape(B, KV, 1, g, hd) * l[..., None]
+    got = combine_ref(
+        torch.from_numpy(q), acc, m, l, torch.from_numpy(lk), torch.from_numpy(lv),
         torch.from_numpy(meta), torch.from_numpy(lengths), torch.arange(3, dtype=torch.int32),
     )
     np.testing.assert_allclose(_np(got), _np(want), atol=3e-5, rtol=3e-5)
+
+
+def _split_case(dtype):
+    """Four rows: pages + log with a non-resident page; every page beyond the
+    watermark (log only); all pages, no log; a padded row (request -1)."""
+    rng = np.random.default_rng(11)
+    B, H, KV, hd, page, P, N, S = 4, 8, 4, 64, 8, 24, 6, 16
+    arrays = [_rand(rng, s, dtype) for s in [(B, H, hd), (P, page, KV, hd), (P, page, KV, hd), (S, KV, hd), (S, KV, hd)]]
+    table = rng.choice(P, size=B * N, replace=False).reshape(B, N).astype(np.int32)
+    table[0, 2] = -1
+    plen = np.array([37, 0, 48, 0], np.int32)
+    lengths = np.array([41, 6, 48, 0], np.int32)
+    req = np.array([0, 1, 2, -1], np.int32)
+    meta = np.full((S, 2), -1, np.int32)
+    rows = [(0, 37 + i) for i in range(4)] + [(1, i) for i in range(6)] + [(5, 3), (5, 4)]
+    for slot, row in zip(rng.permutation(S), rows):
+        meta[slot] = row
+    return arrays, table, meta, plen, lengths, req
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pages_per_split", [1, 2, 4, 6])
+def test_paged_split_plain_vs_jax(pages_per_split, dtype):
+    """The kernels' split-and-combine algorithm (plain version) against JAX's
+    paged_decode_attention with the write log (Pallas, interpret mode): 1, 2,
+    4 and all N pages a split; splits without a valid key, a row whose every
+    page lies beyond the watermark, and a padded row."""
+    pairs, table, meta, plen, lengths, req = _split_case(dtype)
+    (jq, q), (jk, kp), (jv, vp), (jlk, lk), (jlv, lv) = pairs
+    want = jax_paged_ops(
+        jq, jk, jv, jnp.asarray(table), jnp.asarray(lengths), jlk, jlv, jnp.asarray(meta),
+        page_lengths=jnp.asarray(plen), req_ids=jnp.asarray(req), use_pallas=True,
+    )
+    t = torch.from_numpy
+    got = paged_decode_attention_split_ref(
+        q, kp, vp, t(table), t(lengths), lk, lv, t(meta), page_lengths=t(plen), req_ids=t(req),
+        pages_per_split=pages_per_split,
+    )
+    assert torch.isfinite(got.float()).all()
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5
+    np.testing.assert_allclose(_np(got)[:3], _np(want)[:3], atol=tol, rtol=tol)
+    # the padded row has no valid key: a finite 0 (the jnp oracle's softmax
+    # over an all-masked row gives the mean of V there, which nothing reads)
+    np.testing.assert_array_equal(_np(got)[3], 0.0)
+
+
+def test_split_plan_covers_the_card():
+    assert split_plan(4, 8, 40, 16, 132) == (2, 20)  # full width: 640 blocks
+    pps, n_split = split_plan(1, 2, 40, 16, 132)
+    assert (pps, n_split) == (1, 40)
+    pps, n_split = split_plan(2, 2, 3, 8, 132)
+    assert n_split * pps >= 3 and pps == 1
 
 
 def test_padded_row_is_finite():
