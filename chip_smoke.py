@@ -10,10 +10,13 @@ Phases (any failure exits non-zero; so does a missing card):
   3. kernels — each kernel against its plain PyTorch version at the main
      path's full-width shapes, with times of kernel, plain version and a
      PyTorch library call (CUDA events over back-to-back calls, and the
-     device time from a torch.profiler window), and the least time the card
+     device time from a torch.profiler window, also of the plain version:
+     the op chain a fused kernel replaces), and the least time the card
      could take. Paged attention: the whole op with the write log (two
      launches), and the pages alone; flash attention (bf16, tensor-core
-     route) at S=381 and S=517.
+     route) at S=381 and S=517; the KV append as the decode step runs it
+     (the K/V epilogue fused in: bias, qk-norm, RoPE, append), and alone;
+     log compaction into both tiers in one launch, and into one pool.
   4. serving — full-width qwen3-1.7b (random weights from a seed) through
      the port's TieredEngine: every kernel launched as often as the
      deterministic policy requires, every flash call on the tensor-core route, ServeStats equal to the
@@ -44,14 +47,19 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12  # fp32 outside the tensor cores
 
 SEED = 0
 PROMPT_LENS = [203, 251, 298, 339, 387, 429, 466, 517]  # none a multiple of 16
 NEW_TOKENS = 48
 # the serving run's launches: the policy depends on lengths only
-EXPECTED_LAUNCHES = {"paged_attention": 3584, "log_compact": 14, "kv_log_append": 3584, "flash_attention": 224}
+EXPECTED_LAUNCHES = {"paged_attention": 3584, "log_compact": 7, "kv_log_append": 3584, "flash_attention": 224}
 NEAR_TIE = 0.125  # logits at full width reach ~4, where bf16 spacing is 1/32
 TOL = {"paged_attention": 2e-2, "flash_attention": 3e-2, "kv_log_append": 0.0, "log_compact": 0.0}
+# the fused K/V epilogue, in bf16 ulps: it rounds where the plain ops do
+# and sums the rmsnorm's squares in the order torch's CUDA reduction uses;
+# a torch that sums otherwise can move a rounding by an ulp
+TOL_EPILOGUE_ULPS = 1
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/kernel.py:117",
     "log_compact": "src/repro/kernels/log_compact/kernel.py:86",
@@ -140,8 +148,8 @@ def device_ms(fn, iters=10, required=True):
     return None, None
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_BF16):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -149,11 +157,23 @@ def timed(kernel, plain, library, err, bound):
     """One row of phase 3: CUDA-event and profiler times of the kernel, its
     plain version and the library yardstick."""
     dev, ops = device_ms(kernel)
+    plain_dev, plain_ops = device_ms(plain)
     return dict(
         max_abs_err=err, ms=cuda_ms(kernel), device_ms=dev, device_ops=ops, plain_ms=cuda_ms(plain),
+        plain_device_ms=plain_dev, plain_device_ops=plain_ops,
         library_ms=None if library is None else cuda_ms(library),
         library_device_ms=None if library is None else device_ms(library, required=False)[0], bound=bound,
     )
+
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance between two bf16 tensors in units in the last place
+    (bit patterns mapped to a monotone integer line; +0 and -0 both 0)."""
+    def line(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return int((line(a) - line(b)).abs().max())
 
 
 def check_close(name, got, want, tol):
@@ -171,12 +191,13 @@ def check_kernels(full):
     from repro_torch.kernels import reset_launch_counts, route_counts
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.kv_log_append.ops import kv_log_append
-    from repro_torch.kernels.kv_log_append.ref import kv_log_append_ref
-    from repro_torch.kernels.log_compact.ops import log_compact
-    from repro_torch.kernels.log_compact.ref import log_compact_ref
+    from repro_torch.kernels.kv_log_append.ops import kv_log_append, qkv_log_append
+    from repro_torch.kernels.kv_log_append.ref import kv_log_append_ref, qkv_log_append_ref
+    from repro_torch.kernels.log_compact.ops import log_compact, log_compact_tiers
+    from repro_torch.kernels.log_compact.ref import log_compact_ref, log_compact_tiers_ref
     from repro_torch.kernels.paged_attention.ops import paged_attention_pages, paged_decode_attention
     from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+    from repro_torch.models.layers import AttnParams
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -277,16 +298,48 @@ def check_kernels(full):
     rows["flash_attention"] = flash_rows[0]
     rows["flash_attention"]["extra"] = flash_rows[1:]
 
-    # ---- kv log append: one layer of a decode step's write ----
+    # ---- kv log append, as the decode step runs it: one layer's K/V
+    # epilogue (qk-norm, RoPE; qwen3 has no bias) fused into the append ----
     tail = 20
-    base_k, base_v = randn(1, S_log, KV, hd), randn(1, S_log, KV, hd)
-    k_new, v_new = randn(1, B, KV, hd), randn(1, B, KV, hd)
-    pos = torch.tensor([411, 505, 301, -1], dtype=torch.int32, device=dev)
+    base_k, base_v = randn(S_log, KV, hd), randn(S_log, KV, hd)
+    pos = torch.tensor([411, 505, 301, 0], dtype=torch.int32, device=dev)  # row 3 is padding
+    meta_pos = torch.where(req >= 0, pos, -1)
+    raw = [randn(B, 1, n * hd) for n in (H, KV, KV)]
+    gains = [(1.0 + 0.2 * torch.randn(hd, generator=gen, device=dev)).to(bf16) for _ in range(2)]
+    ap = AttnParams(wq=None, wk=None, wv=None, wo=None, q_norm=gains[0], k_norm=gains[1])
     outs = []
-    for fn in (kv_log_append, kv_log_append_ref):
+    for fn in (qkv_log_append, qkv_log_append_ref):
         lk, lv = base_k.clone(), base_v.clone()
         lm = torch.full((S_log, 2), -1, dtype=torch.int32, device=dev)
-        fn(lk, lv, lm, tail, k_new, v_new, req, pos)
+        q_out, _ = fn(full, ap, *raw, pos, lk, lv, lm, tail, req, meta_pos)
+        outs.append((q_out, lk, lv, lm))
+    torch.cuda.synchronize()
+    if not torch.equal(outs[0][3], outs[1][3]):
+        raise AssertionError("kv_log_append (fused epilogue): meta rows differ from the plain version")
+    ulps = max(bf16_ulps(a, b) for a, b in zip(outs[0][:3], outs[1][:3]))
+    if ulps > TOL_EPILOGUE_ULPS or not all(torch.isfinite(a).all() for a in outs[0][:3]):
+        raise AssertionError(f"kv_log_append (fused epilogue): {ulps} bf16 ulps from the plain version "
+                             f"(tol {TOL_EPILOGUE_ULPS})")
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs[0][:3], outs[1][:3]))
+    print(f"  kv_log_append (fused epilogue): {ulps} bf16 ulps (tol {TOL_EPILOGUE_ULPS}), max abs err {err:.3g}")
+    _, lk, lv, lm = outs[0]
+    moved = sum(t.numel() for t in raw) * 2 + B * H * hd * 2 + 2 * B * KV * hd * 2  # read raw, write q, k, v
+    small = 2 * hd * 2 + hd // 2 * 4 + 3 * B * 4 + B * 2 * 4  # gains, freqs, positions, ids, meta rows
+    flops = 16.0 * B * (H + KV) * hd  # rmsnorm and RoPE, fp32 outside the tensor cores
+    rows["kv_log_append"] = dict(shape="fused K/V epilogue + append (qkv_log_append), one layer", **timed(
+        lambda: qkv_log_append(full, ap, *raw, pos, lk, lv, lm, tail, req, meta_pos),
+        lambda: qkv_log_append_ref(full, ap, *raw, pos, lk, lv, lm, tail, req, meta_pos),
+        None, err, bound_ms(moved + small, flops, PEAK_FP32),
+    ))
+    rows["kv_log_append"]["ulps"] = ulps
+
+    # ---- the standalone append (the Pallas kernel's counterpart) ----
+    k_new, v_new = randn(1, B, KV, hd), randn(1, B, KV, hd)
+    outs = []
+    for fn in (kv_log_append, kv_log_append_ref):
+        lk, lv = base_k[None].clone(), base_v[None].clone()
+        lm = torch.full((S_log, 2), -1, dtype=torch.int32, device=dev)
+        fn(lk, lv, lm, tail, k_new, v_new, req, meta_pos)
         outs.append((lk, lv, lm))
     torch.cuda.synchronize()
     for a, b in zip(*outs):
@@ -298,46 +351,88 @@ def check_kernels(full):
         lk[:, tail:tail + B].copy_(k_new)
         lv[:, tail:tail + B].copy_(v_new)
         lm[tail:tail + B, 0].copy_(req)
-        lm[tail:tail + B, 1].copy_(pos)
+        lm[tail:tail + B, 1].copy_(meta_pos)
 
-    rows["kv_log_append"] = timed(
-        lambda: kv_log_append(lk, lv, lm, tail, k_new, v_new, req, pos),
-        lambda: kv_log_append_ref(lk, lv, lm, tail, k_new, v_new, req, pos),
+    rows["kv_log_append"]["extra"] = [dict(shape="standalone append (kv_log_append)", **timed(
+        lambda: kv_log_append(lk, lv, lm, tail, k_new, v_new, req, meta_pos),
+        lambda: kv_log_append_ref(lk, lv, lm, tail, k_new, v_new, req, meta_pos),
         library_append, 0.0, bound_ms(2 * 2 * k_new.numel() * 2 + 4 * B * 4, 0.0),
-    )
+    ))]
 
-    # ---- log compaction: a full log of 4 requests into the fast pool ----
-    ck, cv = randn(L, P, page, KV, hd), randn(L, P, page, KV, hd)
+    # ---- log compaction: a full log of 4 requests into both tiers ----
+    n_host = 8 * N  # the serving run's host tier: 8 requests x 40 pages
+    fk, fv = randn(L, P, page, KV, hd), randn(L, P, page, KV, hd)
+    hk, hv = randn(L, n_host, page, KV, hd), randn(L, n_host, page, KV, hd)
     lk, lv = randn(L, S_log, KV, hd), randn(L, S_log, KV, hd)
     starts = [405, 218, 333, 470]  # 16 tokens each, straddling two pages
-    cmeta = torch.tensor([[r, starts[r] + i] for i in range(16) for r in range(4)], dtype=torch.int32)
-    pages = sorted({(r, (starts[r] + i) // page) for r in range(4) for i in range(16)})
-    targets = torch.tensor([[r, lp, perm[j]] for j, (r, lp) in enumerate(pages)], dtype=torch.int32)
-    cmeta, targets = cmeta.to(dev), targets.to(dev)
+    meta_rows = [[r, starts[r] + i] for i in range(16) for r in range(4)]
+    pages = sorted({(r, p // page) for r, p in meta_rows})
+    targets = [[r, lp, perm[j], r * N + lp] for j, (r, lp) in enumerate(pages)]  # every page resident
+    cmeta = torch.tensor(meta_rows, dtype=torch.int32, device=dev)
+    ctargets = torch.tensor(targets, dtype=torch.int32, device=dev)
+    outs = []
+    for fn in (log_compact_tiers, log_compact_tiers_ref):
+        pools = [t.clone() for t in (fk, fv, hk, hv)]
+        fn(*pools, lk, lv, cmeta, ctargets)
+        outs.append(pools)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            raise AssertionError("log_compact (two tiers): kernel and plain version differ")
+    pools = outs[0]
+    del outs
+    # the yardstick: index_copy_ of the matched log rows into both tiers
+    # (the newest slot of each page row; indices built here, outside the timing)
+    newest = {(r, p): s for s, (r, p) in enumerate(meta_rows)}
+    src = torch.tensor(list(newest.values()), device=dev)
+    slot_of = {(r, lp): (fs, hs) for r, lp, fs, hs in targets}
+    dst_fast = torch.tensor([slot_of[(r, p // page)][0] * page + p % page for r, p in newest], device=dev)
+    dst_host = torch.tensor([slot_of[(r, p // page)][1] * page + p % page for r, p in newest], device=dev)
+    flat = [t.view(L, -1, KV, hd) for t in pools]
+
+    def library_compact():
+        for log, fast, host in ((lk, flat[0], flat[2]), (lv, flat[1], flat[3])):
+            rows_ = log.index_select(1, src)
+            fast.index_copy_(1, dst_fast, rows_)
+            host.index_copy_(1, dst_host, rows_)
+
+    check = [t.clone() for t in pools]
+    library_compact()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(check, pools)):
+        raise AssertionError("log_compact: the index_copy_ yardstick computes another function")
+    del check
+    moved = L * len(newest) * KV * hd * 2 * 2  # K and V rows of the log that match
+    rows["log_compact"] = dict(shape="two tiers, one launch (log_compact_tiers)", **timed(
+        lambda: log_compact_tiers(*pools, lk, lv, cmeta, ctargets),
+        lambda: log_compact_tiers_ref(*pools, lk, lv, cmeta, ctargets),
+        library_compact, 0.0, bound_ms(3 * moved + cmeta.numel() * 4 + ctargets.numel() * 4, 0.0),
+    ))
+    one_pool = ctargets[:, :3].contiguous()
     outs = []
     for fn in (log_compact, log_compact_ref):
-        pk, pv = ck.clone(), cv.clone()
-        fn(pk, pv, lk, lv, cmeta, targets)
+        pk, pv = fk.clone(), fv.clone()
+        fn(pk, pv, lk, lv, cmeta, one_pool)
         outs.append((pk, pv))
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
-            raise AssertionError("log_compact: kernel and plain version differ")
+            raise AssertionError("log_compact (one pool): kernel and plain version differ")
     pk, pv = outs[0]
-    moved = L * S_log * KV * hd * 2 * 2  # every log row matches one target here
-    rows["log_compact"] = timed(
-        lambda: log_compact(pk, pv, lk, lv, cmeta, targets),
-        lambda: log_compact_ref(pk, pv, lk, lv, cmeta, targets),
-        None, 0.0, bound_ms(2 * moved + cmeta.numel() * 4 + targets.numel() * 4, 0.0),
-    )
-    del ck, cv, pk, pv, outs
+    rows["log_compact"]["extra"] = [dict(shape="one pool (log_compact)", **timed(
+        lambda: log_compact(pk, pv, lk, lv, cmeta, one_pool),
+        lambda: log_compact_ref(pk, pv, lk, lv, cmeta, one_pool),
+        None, 0.0, bound_ms(2 * moved + cmeta.numel() * 4 + one_pool.numel() * 4, 0.0),
+    ))]
+    del fk, fv, hk, hv, pools, flat, outs, pk, pv
     torch.cuda.empty_cache()
 
     def show(name, r):
         lib_dev = "not measured" if r["library_device_ms"] is None else f"{r['library_device_ms']:.4f}"
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms (device {lib_dev})"
         print(f"  {name:34s} err {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
-              f"{r['device_ops']:.0f} ops)  plain {r['plain_ms']:.4f} ms  library {lib}  "
+              f"{r['device_ops']:.0f} ops)  plain {r['plain_ms']:.4f} ms (device {r['plain_device_ms']:.4f}, "
+              f"{r['plain_device_ops']:.0f} ops)  library {lib}  "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
 
     for name, r in rows.items():
@@ -444,9 +539,13 @@ def serve(full, reduced, card):
     by_name = {}
     for e in on_device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 4e3
-    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
     paged_ms = union_ms([e for e in on_device if "paged_split_kernel" in e.name or "paged_combine_kernel" in e.name]) / 4
     sum_ms = sum(e.time_range.elapsed_us() for e in on_device) / 4e3
+    append = [e for e in on_device if "kv_log_append_kernel" in e.name]
+    append_ms = sum(e.time_range.elapsed_us() for e in append) / 4e3
+    print(f"  kv_log_append (fused epilogue) {append_ms:.4f} ms/step in {len(append) / 4:.0f} launches "
+          f"({append_ms / max(len(append) / 4, 1) * 1e3:.2f} us a layer)")
     print(f"  decode step (untraced) {step_ms:.2f} ms; device busy {busy_ms:.3f} ms/step "
           f"(sum of kernel times {sum_ms:.3f}; {len(on_device) / 4:.0f} device ops/step); idle share {1 - busy_ms / step_ms:.3f}; "
           f"paged attention {paged_ms:.4f} ms/step — on {card}")
@@ -480,14 +579,16 @@ def main() -> int:
     with phase("serving"):
         counts, routes = serve(full, reduced, card)
     kernels = []
-    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
+    keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
+            "library_device_ms")
     for name in ("paged_attention", "log_compact", "kv_log_append", "flash_attention"):
         r = rows[name]
         entry = {
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"], "device_ops": r["device_ops"],
+            "plain_device_ms": r["plain_device_ms"], "plain_device_ops": r["plain_device_ops"],
             "library_device_ms": r["library_device_ms"],
         }
         if "shape" in r:
@@ -497,6 +598,7 @@ def main() -> int:
                                **{k: x[k] for k in keys}} for x in r["extra"]]
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
+    kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS
     kernels[3]["tensor_core_launches"] = routes["tensor_core"]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,18 +22,18 @@ card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels.kv_log_append.ops import kv_log_append
-from repro_torch.kernels.log_compact.ops import log_compact
+from repro_torch.kernels.kv_log_append.ops import qkv_log_append
+from repro_torch.kernels.log_compact.ops import log_compact_tiers
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models.api import ModelSpec
 from repro_torch.models.common import layer_params
 from repro_torch.models.dense import _attn_params, _ffn, unembed
-from repro_torch.models.layers import project_qkv, rmsnorm
+from repro_torch.models.layers import rmsnorm
 
 State = Dict[str, Any]
 
@@ -122,10 +122,12 @@ def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
     """Decode step over the tiered KV state for the dense GQA decoder.
     Returns step(params, state, tokens, req_ids) -> (next_tokens, state).
 
-    The current token's K/V is appended to the write log, layer by layer,
-    by the kv_log_append kernel (token-granular, no page read-modify-write:
-    the paper's write path); attention reads pages + log in parallel (the
-    paper's read path). ``state`` is updated in place.
+    The current token's K/V is appended to the write log, layer by layer
+    (token-granular, no page read-modify-write: the paper's write path) by
+    qkv_log_append, which also does the projections' bias, qk-norm and
+    RoPE: one kernel launch a layer from the q/k/v matmuls to the log.
+    Attention reads pages + log in parallel (the paper's read path).
+    ``state`` is updated in place.
     """
     cfg = spec.cfg
 
@@ -138,26 +140,22 @@ def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
         page_table = state["page_table"][safe_req]  # (B, N)
 
         x = params["embed"][tokens]  # (B, 1, d)
-        positions = lengths[:, None]
         tail = state["log_tail"]
         meta_pos = torch.where(live, lengths, -1)
+        lengths1 = lengths + 1  # attention covers the just-appended token
         for layer in range(cfg.n_layers):
             p_l = layer_params(params, layer)
+            ap = _attn_params(cfg, p_l)
             h = rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
-            q, k, v = project_qkv(cfg, _attn_params(cfg, p_l), h, positions)
-            # write path: append this token's KV to the log (per layer)
-            log_k_l = state["log_k"][layer:layer + 1]
-            log_v_l = state["log_v"][layer:layer + 1]
-            kv_log_append(
-                log_k_l, log_v_l, state["log_meta"], tail,
-                k[None, :, 0].to(log_k_l.dtype).contiguous(),
-                v[None, :, 0].to(log_v_l.dtype).contiguous(), req_ids, meta_pos,
+            # write path: this token's K/V, finished, appended to the log
+            q, _ = qkv_log_append(
+                cfg, ap, h @ ap.wq, h @ ap.wk, h @ ap.wv, lengths, state["log_k"][layer],
+                state["log_v"][layer], state["log_meta"], tail, req_ids, meta_pos,
             )
-            # read path: pages + log in parallel (lengths+1 covers the
-            # just-appended token)
+            # read path: pages + log in parallel
             o = paged_decode_attention(
-                q[:, 0].contiguous(), state["hbm_k"][layer], state["hbm_v"][layer],
-                page_table, lengths + 1, log_k_l[0], log_v_l[0], state["log_meta"],
+                q, state["hbm_k"][layer], state["hbm_v"][layer],
+                page_table, lengths1, state["log_k"][layer], state["log_v"][layer], state["log_meta"],
                 page_lengths=compacted, req_ids=req_ids,
             )
             x = x + (o.reshape(B, -1) @ p_l["wo"])[:, None]
@@ -174,14 +172,36 @@ def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
     return step
 
 
-def compact_log(kv_cfg: TieredKVConfig, state: State, flush_hbm: torch.Tensor, flush_host: torch.Tensor) -> State:
+def joint_targets(flush_hbm, flush_host) -> List[List[int]]:
+    """One (request, logical page, fast slot or -1, host slot or -1) row per
+    dirty page from the two tiers' (request, logical page, slot) lists
+    (rows with a negative request or slot are dropped)."""
+    def rows(t):
+        return t.tolist() if hasattr(t, "tolist") else list(t)
+
+    fast = {(r, lp): s for r, lp, s in rows(flush_hbm) if r >= 0 and s >= 0}
+    joint = [[r, lp, fast.pop((r, lp), -1), s] for r, lp, s in rows(flush_host) if r >= 0 and s >= 0]
+    return joint + [[r, lp, s, -1] for (r, lp), s in fast.items()]
+
+
+def compact_log(kv_cfg: TieredKVConfig, state: State, flush_hbm, flush_host) -> State:
     """Run log compaction into both pools and clear the log.
 
     flush_hbm / flush_host: (F, 3) int32 (request, logical_page, pool_slot)
-    built by the engine from the log's meta rows (unique dirty pages — the
-    paper's first-level hash-table scan)."""
-    log_compact(state["hbm_k"], state["hbm_v"], state["log_k"], state["log_v"], state["log_meta"], flush_hbm)
-    log_compact(state["host_k"], state["host_v"], state["log_k"], state["log_v"], state["log_meta"], flush_host)
+    rows, host-side (arrays, lists or CPU tensors), built by the engine from
+    the log's meta rows (unique dirty pages — the paper's first-level
+    hash-table scan). They are joined on the host into one table, uploaded
+    once, and both tiers are written in one pass over the log."""
+    joint = joint_targets(flush_hbm, flush_host)
+    if joint:
+        targets = torch.tensor(joint, dtype=torch.int32)
+        device = state["log_meta"].device
+        if device.type == "cuda":  # a pinned copy sent without stalling the host
+            targets = targets.pin_memory().to(device, non_blocking=True)
+        log_compact_tiers(
+            state["hbm_k"], state["hbm_v"], state["host_k"], state["host_v"],
+            state["log_k"], state["log_v"], state["log_meta"], targets,
+        )
     state["log_meta"].fill_(-1)
     state["log_tail"] = 0
     # everything logged so far is now in pages

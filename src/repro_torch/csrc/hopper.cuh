@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks for the port's tensor-core kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
+// Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
+// tile loads, bulk copies, wgmma shared-memory descriptors and the wgmma
 // instructions themselves (inline PTX; no CUTLASS), plus the host-side
 // encoding of TMA tensor maps through the driver entry point (no -lcuda).
 #pragma once
@@ -61,6 +61,34 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// ---- bulk copies (TMA without a tensor map) --------------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory; completion is reported to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` from shared to global memory, in the thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+// Close the thread's bulk group and wait until its stores are complete.
+__device__ __forceinline__ void bulk_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Order this thread's view of shared memory before its bulk (async-proxy) ops.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -12,8 +12,12 @@ Kernels (each replaces one Pallas TPU kernel of ``repro.kernels``):
   paged_attention — decode attention over the fast page pool and the write
                     log (read path): a page pass split over pages, then the
                     log pass fused into the combine; two launches a call
-  kv_log_append   — token append into the KV write-log ring (write path)
-  log_compact     — newest-wins coalescing of log tokens into pages
+  kv_log_append   — token append into the KV write-log ring (write path);
+                    on the decode path it also does the K/V epilogue (bias,
+                    qk-norm, RoPE) of the q/k/v projections: one launch a
+                    layer (``qkv_log_append``)
+  log_compact     — newest-wins coalescing of log tokens into pages, both
+                    tiers in one launch (``log_compact_tiers``)
   flash_attention — tiled causal attention for prefill: wgmma tensor-core
                     route for bf16, CUDA-core route for fp32
 """
@@ -38,7 +42,8 @@ def _wrappers():
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name (paged attention: calls of the
-    op, two launches each)."""
+    op, two launches each; kv_log_append and log_compact: launches of either
+    entry point)."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 

@@ -129,6 +129,32 @@ def check(err: int, what: str) -> None:
 
 P = ctypes.c_void_p  # device pointer / stream
 I = ctypes.c_int
+F32 = ctypes.c_float
+
+_validated = set()
+
+
+def validate_once(tag, tensors, check) -> None:
+    """Run ``check()``, which raises on whatever a kernel does not take, once
+    per ``tag`` and (shape, stride, dtype, device) of ``tensors`` (``None``
+    for an absent optional tensor); later calls with the same key skip it.
+    What can change between calls with one key (a host integer such as the
+    log tail, a base address) the wrapper checks on every call."""
+    key = (tag, *[None if t is None else (t.shape, t.stride(), t.dtype, t.get_device()) for t in tensors])
+    if key not in _validated:
+        check()
+        _validated.add(key)
+
+
+def expect(what: str, device, *checks) -> None:
+    """Raise unless each (name, tensor, shape, dtype) matches, lies on
+    ``device`` and is contiguous (``what`` names the kernel)."""
+    for name, t, shape, dtype in checks:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype} {t.device}, "
+                             f"want {tuple(shape)} {dtype} {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of write-log compaction (port of
-``repro/kernels/log_compact/ref.py``).
+"""Plain PyTorch versions of write-log compaction (port of
+``repro/kernels/log_compact/ref.py``), into one pool and into both tiers.
 
 For each flush target f (request r, logical page p, pool slot s), every log
 entry whose (request, abs_pos // page_size) matches (r, p) is written into
@@ -39,3 +39,20 @@ def log_compact_ref(
         src = last[offs]
         k_pages[:, slot, offs] = log_k[:, src].to(k_pages.dtype)
         v_pages[:, slot, offs] = log_v[:, src].to(v_pages.dtype)
+
+
+def log_compact_tiers_ref(
+    fast_k: torch.Tensor,  # (L, P_fast, page, KV, hd)
+    fast_v: torch.Tensor,
+    host_k: torch.Tensor,  # (L, P_host, page, KV, hd)
+    host_v: torch.Tensor,
+    log_k: torch.Tensor,  # (L, S, KV, hd)
+    log_v: torch.Tensor,
+    log_meta: torch.Tensor,  # (S, 2)
+    targets: torch.Tensor,  # (F, 4): request, logical page, fast slot, host slot
+) -> None:
+    """Compaction into both tiers: ``log_compact_ref`` into the fast pool
+    with columns (0, 1, 2) and into the host pool with columns (0, 1, 3); a
+    slot of -1 leaves that tier's copy of the page alone."""
+    log_compact_ref(fast_k, fast_v, log_k, log_v, log_meta, targets[:, [0, 1, 2]])
+    log_compact_ref(host_k, host_v, log_k, log_v, log_meta, targets[:, [0, 1, 3]])

@@ -61,11 +61,17 @@ def project_qkv(
     cfg: ModelConfig, p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q: (B, S, H, hd), k/v: (B, S, KV, hd)."""
-    B, S, _ = x.shape
+    return qkv_epilogue(cfg, p, x @ p.wq, x @ p.wk, x @ p.wv, positions)
+
+
+def qkv_epilogue(
+    cfg: ModelConfig, p: AttnParams, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    positions: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What ``project_qkv`` does after the three matmuls: bias, qk-norm and
+    RoPE. q: (B, S, H*hd), k/v: (B, S, KV*hd) -> (B, S, heads, hd) each."""
+    B, S, _ = q.shape
     hd = cfg.resolved_head_dim
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(B, S, cfg.n_heads, hd)

@@ -185,10 +185,8 @@ class TieredEngine:
             flush_host.append([rid, logical, host_slot(self.kv, rid, logical)])
             self.stats.flushed_pages += 1
             self.stats.flushed_tokens += ntok
-        pad = [[-1, 0, -1]]
-        fh = self._upload(np.asarray(flush_hbm or pad, np.int32))
-        fo = self._upload(np.asarray(flush_host or pad, np.int32))
-        tiering.compact_log(self.kv, self.state, fh, fo)
+        # host lists: compact_log joins them and uploads one table
+        tiering.compact_log(self.kv, self.state, flush_hbm, flush_host)
         self.log_meta[:] = -1
         self.compacted[:] = self.lengths
         self.stats.compactions += 1

@@ -4,7 +4,11 @@ Marked ``gpu``: each test skips (inside its fixture) where no CUDA card is
 visible. On a machine with one:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 Tolerances as in tests/test_torch_kernels.py: fp32 3e-5, bf16 2e-2 (paged)
-and 3e-2 (flash), append and compaction bit-exact. bf16 flash attention runs
+and 3e-2 (flash), append and compaction bit-exact. The K/V epilogue fused
+into the append: 1 bf16 ulp, fp32 1e-5, meta rows exact (the kernel rounds
+where the plain ops do and sums the rmsnorm's squares in torch's order, so
+it is exact while torch sums that way; see
+test_torch_mean_sums_as_the_fused_kernel). bf16 flash attention runs
 on the tensor-core route and fp32 on the CUDA-core route; the tests assert
 which.
 """
@@ -17,13 +21,15 @@ from repro_torch.core.tiering import TieredKVConfig
 from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.kv_log_append.ops import kv_log_append
-from repro_torch.kernels.kv_log_append.ref import kv_log_append_ref
-from repro_torch.kernels.log_compact.ops import log_compact
-from repro_torch.kernels.log_compact.ref import log_compact_ref
+from repro_torch.configs import ModelConfig
+from repro_torch.kernels.kv_log_append.ops import kv_log_append, qkv_log_append
+from repro_torch.kernels.kv_log_append.ref import kv_log_append_ref, qkv_log_append_ref
+from repro_torch.kernels.log_compact.ops import log_compact, log_compact_tiers
+from repro_torch.kernels.log_compact.ref import log_compact_ref, log_compact_tiers_ref
 from repro_torch.kernels.paged_attention.ops import _paged_attention_cuda, paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref, paged_decode_attention_split_ref
 from repro_torch.launch.serve import dense_decode
+from repro_torch.models.layers import AttnParams
 from repro_torch.models.api import ModelSpec
 from repro_torch.serving.engine import Request, TieredEngine
 
@@ -188,6 +194,137 @@ def test_kv_log_append_kernel(cuda, L, S, B, KV, hd, tail):
         k, v, m = lk.clone(), lv.clone(), torch.full((S, 2), -1, dtype=torch.int32, device=cuda)
         assert fn(k, v, m, tail, kn, vn, req, pos) == tail + B
         outs.append((k, v, m))
+    for a, b in zip(*outs):
+        _bits_equal(a, b)
+
+
+def _bf16_ulps(a, b) -> int:
+    """Largest distance between two bf16 tensors in units in the last place
+    (bit patterns mapped to a monotone integer line; +0 and -0 both 0)."""
+    def line(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+def _epilogue_case(rng, dev, dtype, L, S, B, H, KV, hd, bias, qk_norm):
+    """Raw projections of L layers, their weights, and a log and meta to append to."""
+    d = DT[dtype]
+    cfg = ModelConfig(name="t", family="dense", n_layers=L, d_model=H * hd, n_heads=H, n_kv_heads=KV,
+                      d_ff=64, vocab=64, head_dim=hd, qkv_bias=bias, qk_norm=qk_norm, rope_theta=1e6, norm_eps=1e-6)
+    layers = []
+    for _ in range(L):
+        raw = [_rand(rng, (B, 1, n * hd), dtype, dev) for n in (H, KV, KV)]
+        w = {}
+        if bias:
+            w.update({n: _rand(rng, (m * hd,), dtype, dev) for n, m in (("bq", H), ("bk", KV), ("bv", KV))})
+        if qk_norm:
+            w.update({n: (1.0 + 0.2 * _rand(rng, (hd,), "float32", dev)).to(d) for n in ("q_norm", "k_norm")})
+        layers.append((raw, AttnParams(wq=None, wk=None, wv=None, wo=None, **w)))
+    log = _rand(rng, (L, S, KV, hd), dtype, dev), _rand(rng, (L, S, KV, hd), dtype, dev)
+    req = torch.from_numpy(rng.integers(0, 8, B).astype(np.int32)).to(dev)
+    req[1 % B] = -1  # a padded row: meta (-1, -1), RoPE position 0
+    pos = torch.from_numpy(rng.integers(0, 600, B).astype(np.int32)).to(dev)
+    pos[1 % B] = 0
+    meta_pos = torch.where(req >= 0, pos, -1)
+    return cfg, layers, log, req, pos, meta_pos
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bias,qk_norm", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("L,S,B,H,KV,hd,tail", [
+    (2, 16, 4, 4, 2, 16, 5), (3, 32, 3, 8, 4, 32, 17), (2, 32, 2, 6, 2, 64, 30),
+    (2, 64, 4, 16, 8, 128, 20),  # full width (qwen3-1.7b: qk-norm, no bias)
+])
+def test_qkv_log_append_kernel(cuda, L, S, B, H, KV, hd, tail, bias, qk_norm, dtype):
+    """The fused K/V epilogue and append against its plain version, layer
+    by layer: q and the log within 1 bf16 ulp (fp32: 1e-5), meta exact, one
+    launch a layer."""
+    rng = np.random.default_rng(L * 1000 + hd + 2 * bias + qk_norm)
+    cfg, layers, (lk, lv), req, pos, meta_pos = _epilogue_case(rng, cuda, dtype, L, S, B, H, KV, hd, bias, qk_norm)
+    outs, qs = [], []
+    reset_launch_counts()
+    for fn in (qkv_log_append, qkv_log_append_ref):
+        k_log, v_log, meta = lk.clone(), lv.clone(), torch.full((S, 2), -1, dtype=torch.int32, device=cuda)
+        q_fn = []
+        for layer, (raw, p) in enumerate(layers):
+            q, new_tail = fn(cfg, p, *raw, pos, k_log[layer], v_log[layer], meta, tail, req, meta_pos)
+            assert new_tail == tail + B and q.shape == (B, H, hd) and q.is_contiguous()
+            q_fn.append(q)
+        outs.append((k_log, v_log, meta))
+        qs.append(torch.stack(q_fn))
+    assert launch_counts()["kv_log_append"] == L
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][2], outs[1][2])
+    for got, want in ((qs[0], qs[1]), (outs[0][0], outs[1][0]), (outs[0][1], outs[1][1])):
+        assert torch.isfinite(got).all()
+        if dtype == "bfloat16":
+            assert _bf16_ulps(got, want) <= 1
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("M", [4, 12, 64])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128])
+def test_torch_mean_sums_as_the_fused_kernel(cuda, D, M):
+    """The fused epilogue's rmsnorm adds the squares in the order of torch's
+    CUDA mean over a contiguous row: halving the row (D < 128), or summing
+    float4 vectors in turn and halving the 32 sums (D = 128). A torch that
+    sums otherwise fails here, where the kernel test would show only a rare
+    1-ulp difference."""
+    sq = (torch.randn(200, M, D, device=cuda) * 3) ** 2
+    want = torch.stack([torch.mean(rows, dim=-1) for rows in sq]).cpu()
+    v = sq.cpu()
+    if D == 128:
+        v = v.reshape(200, M, 32, 4)
+        v = ((v[..., 0] + v[..., 1]) + v[..., 2]) + v[..., 3]
+    while v.shape[-1] > 1:
+        v = v[..., :v.shape[-1] // 2] + v[..., v.shape[-1] // 2:]
+    assert torch.equal(v[..., 0] * (1.0 / D), want)
+
+
+def test_qkv_log_append_raises(cuda):
+    """On CUDA tensors the fused op launches its kernel or raises: an
+    overflowing tail, a shape or a dtype the kernel does not take."""
+    rng = np.random.default_rng(5)
+    cfg, layers, (lk, lv), req, pos, meta_pos = _epilogue_case(rng, cuda, "bfloat16", 1, 16, 4, 4, 2, 16, False, True)
+    (q, k, v), p = layers[0]
+    meta = torch.full((16, 2), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="overflows"):
+        qkv_log_append(cfg, p, q, k, v, pos, lk[0], lv[0], meta, 14, req, meta_pos)
+    with pytest.raises(ValueError):
+        qkv_log_append(cfg, p, q[:, :, :-16], k, v, pos, lk[0], lv[0], meta, 0, req, meta_pos)
+    with pytest.raises(ValueError):
+        qkv_log_append(cfg, p, q, k, v, pos.long(), lk[0], lv[0], meta, 0, req, meta_pos)
+
+
+@pytest.mark.parametrize("L,P,HP,page,KV,hd,S,span", [
+    (2, 10, 12, 8, 2, 16, 32, 24), (1, 10, 12, 16, 4, 32, 16, 48), (3, 32, 30, 4, 2, 64, 48, 40),
+    (28, 96, 320, 16, 8, 128, 64, 48),  # full width; positions repeat: later slot wins
+])
+def test_log_compact_tiers_kernel(cuda, L, P, HP, page, KV, hd, S, span):
+    """Both tiers in one launch against the plain two-tier compaction, bit
+    for bit; every third dirty page is not resident in the fast pool."""
+    rng = np.random.default_rng(L * 100 + span)
+    fk, fv = _rand(rng, (L, P, page, KV, hd), "bfloat16", cuda), _rand(rng, (L, P, page, KV, hd), "bfloat16", cuda)
+    hk, hv = _rand(rng, (L, HP, page, KV, hd), "bfloat16", cuda), _rand(rng, (L, HP, page, KV, hd), "bfloat16", cuda)
+    lk, lv = _rand(rng, (L, S, KV, hd), "bfloat16", cuda), _rand(rng, (L, S, KV, hd), "bfloat16", cuda)
+    meta = np.full((S, 2), -1, np.int32)
+    for i in range(S - 2):
+        meta[i] = (int(rng.integers(0, 3)), int(rng.integers(0, span)))
+    pages = sorted({(int(r), int(p) // page) for r, p in meta if r >= 0})
+    n_logical = -(-span // page)
+    fast = rng.choice(P, size=len(pages), replace=False)
+    rows = [[r, lp, int(fast[j]) if j % 3 else -1, r * n_logical + lp] for j, (r, lp) in enumerate(pages)]
+    meta, targets = torch.from_numpy(meta).to(cuda), torch.tensor(rows, dtype=torch.int32, device=cuda)
+    outs = []
+    reset_launch_counts()
+    for fn in (log_compact_tiers, log_compact_tiers_ref):
+        pools = [t.clone() for t in (fk, fv, hk, hv)]
+        fn(*pools, lk, lv, meta, targets)
+        outs.append(pools)
+    assert launch_counts()["log_compact"] == 1
     for a, b in zip(*outs):
         _bits_equal(a, b)
 

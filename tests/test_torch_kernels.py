@@ -2,7 +2,9 @@
 shape sweeps of tests/test_kernels.py (CPU).
 
 Tolerances: fp32 3e-5; bf16 2e-2 (paged) and 3e-2 (flash) — the JAX sweep's
-own; append and compaction are copies and must be bit-exact (atol 0).
+own; append and compaction are copies and must be bit-exact (atol 0), and
+so is the decode step's K/V epilogue fused into the append (the same ops in
+the same order as JAX's project_qkv run op by op).
 """
 import jax
 import jax.numpy as jnp
@@ -16,10 +18,14 @@ from repro.kernels.log_compact.ref import log_compact_ref as jax_compact_ref
 from repro.kernels.paged_attention.kernel import paged_decode_attention_pallas
 from repro.kernels.paged_attention.ops import paged_decode_attention as jax_paged_ops
 from repro.kernels.paged_attention.ref import paged_decode_attention_ref as jax_paged_ref
+from repro.configs.base import ModelConfig as JaxConfig
+from repro.models import layers as jax_layers
+from repro_torch.configs import ModelConfig
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.kv_log_append.ops import kv_log_append
-from repro_torch.kernels.log_compact.ops import log_compact
+from repro_torch.kernels.kv_log_append.ops import kv_log_append, qkv_log_append
+from repro_torch.kernels.log_compact.ops import log_compact, log_compact_tiers
+from repro_torch.models.layers import AttnParams
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention, split_plan
 from repro_torch.kernels.paged_attention.ref import combine_ref, paged_decode_attention_split_ref
 
@@ -214,6 +220,55 @@ def test_kv_log_append_plain_vs_jax(L, S, B, KV, hd, tail):
     np.testing.assert_array_equal(tmeta.numpy(), np.asarray(rm))
 
 
+@pytest.mark.parametrize("bias,qk_norm", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("L,S,B,H,KV,hd,tail", [(2, 16, 4, 4, 2, 16, 5), (3, 32, 3, 8, 4, 32, 17)])
+def test_qkv_log_append_plain_vs_jax(L, S, B, H, KV, hd, tail, bias, qk_norm):
+    """The fused K/V epilogue's plain version against JAX's project_qkv and
+    the decode step's inline meta and log writes (core/tiering.py:155-172),
+    run op by op, layer by layer: q, the log rows and the meta rows bit for
+    bit. Row 1 is padding (request -1, meta position -1, RoPE position 0)."""
+    d = 2 * H * hd // 4
+    kw = dict(name="t", family="dense", n_layers=L, d_model=d, n_heads=H, n_kv_heads=KV, d_ff=2 * d, vocab=64,
+              head_dim=hd, qkv_bias=bias, qk_norm=qk_norm, rope_theta=10_000.0, norm_eps=1e-6)
+    jcfg, cfg = JaxConfig(**kw), ModelConfig(**kw)
+    rng = np.random.default_rng(L * 10 + bias + 2 * qk_norm)
+    jlk, lk = _rand(rng, (L, S, KV, hd), "bfloat16")
+    jlv, lv = _rand(rng, (L, S, KV, hd), "bfloat16")
+    req = rng.integers(0, 8, B).astype(np.int32)
+    req[1] = -1
+    pos = rng.integers(0, 600, B).astype(np.int32)
+    pos[1] = 0
+    meta_pos = np.where(req >= 0, pos, -1).astype(np.int32)
+    jmeta, tmeta = jnp.full((S, 2), -1, jnp.int32), torch.full((S, 2), -1, dtype=torch.int32)
+    t = torch.from_numpy
+    with jax.disable_jit():
+        for layer in range(L):
+            jx, _ = _rand(rng, (B, 1, d), "bfloat16")
+            w = {n: _rand(rng, shape, "bfloat16") for n, shape in
+                 (("wq", (d, H * hd)), ("wk", (d, KV * hd)), ("wv", (d, KV * hd)), ("wo", (H * hd, d)))}
+            if bias:
+                w.update({n: _rand(rng, (m * hd,), "bfloat16") for n, m in (("bq", H), ("bk", KV), ("bv", KV))})
+            if qk_norm:
+                w.update({n: _pair(1.0 + 0.2 * rng.normal(size=hd), "bfloat16") for n in ("q_norm", "k_norm")})
+            jq, jk, jv = jax_layers.project_qkv(
+                jcfg, jax_layers.AttnParams(**{n: a for n, (a, _) in w.items()}), jx, jnp.asarray(pos)[:, None])
+            jmeta = jax.lax.dynamic_update_slice_in_dim(
+                jmeta, jnp.stack([jnp.asarray(req), jnp.asarray(meta_pos)], axis=-1), tail, axis=0)
+            jlk = jlk.at[layer].set(jax.lax.dynamic_update_slice_in_dim(jlk[layer], jk[:, 0], tail, axis=0))
+            jlv = jlv.at[layer].set(jax.lax.dynamic_update_slice_in_dim(jlv[layer], jv[:, 0], tail, axis=0))
+            # the raw projections, as project_qkv forms them
+            raw = [_pair(np.asarray(jnp.einsum("bsd,dh->bsh", jx, w[n][0]), np.float32), "bfloat16")[1]
+                   for n in ("wq", "wk", "wv")]
+            q, new_tail = qkv_log_append(
+                cfg, AttnParams(**{n: b for n, (_, b) in w.items()}), *raw, t(pos), lk[layer], lv[layer], tmeta,
+                tail, t(req), t(meta_pos))
+            assert new_tail == tail + B
+            np.testing.assert_array_equal(q.view(torch.int16).numpy(), np.asarray(jq[:, 0]).view(np.int16))
+    np.testing.assert_array_equal(lk.view(torch.int16).numpy(), np.asarray(jlk).view(np.int16))
+    np.testing.assert_array_equal(lv.view(torch.int16).numpy(), np.asarray(jlv).view(np.int16))
+    np.testing.assert_array_equal(tmeta.numpy(), np.asarray(jmeta))
+
+
 def test_kv_log_append_overflow_raises():
     lk = torch.zeros(1, 8, 1, 16)
     with pytest.raises(ValueError, match="overflows"):
@@ -244,6 +299,33 @@ def test_log_compact_plain_vs_jax(L, P, page, KV, hd, S, F, seed):
     log_compact(kp, vp, lk, lv, torch.from_numpy(meta), torch.from_numpy(ft))
     np.testing.assert_array_equal(kp.view(torch.int16).numpy(), np.asarray(rk).view(np.int16))
     np.testing.assert_array_equal(vp.view(torch.int16).numpy(), np.asarray(rv).view(np.int16))
+
+
+@pytest.mark.parametrize("L,P,H_pages,page,KV,hd,S,seed", [(2, 10, 12, 8, 2, 16, 32, 0), (1, 10, 9, 16, 4, 32, 16, 1)])
+def test_log_compact_tiers_plain_vs_jax(L, P, H_pages, page, KV, hd, S, seed):
+    """Compaction into both tiers in one call against two calls of JAX's
+    log_compact_ref (fast pool, then host pool), bit for bit; some dirty
+    pages are not resident in the fast pool (fast slot -1)."""
+    rng = np.random.default_rng(100 + seed)
+    jfk, fk = _rand(rng, (L, P, page, KV, hd), "bfloat16")
+    jfv, fv = _rand(rng, (L, P, page, KV, hd), "bfloat16")
+    jhk, hk = _rand(rng, (L, H_pages, page, KV, hd), "bfloat16")
+    jhv, hv = _rand(rng, (L, H_pages, page, KV, hd), "bfloat16")
+    jlk, lk = _rand(rng, (L, S, KV, hd), "bfloat16")
+    jlv, lv = _rand(rng, (L, S, KV, hd), "bfloat16")
+    meta = np.full((S, 2), -1, np.int32)
+    for i in range(S - 3):  # positions repeat: later slot wins
+        meta[i] = (int(rng.integers(0, 3)), int(rng.integers(0, 3 * page)))
+    pages = sorted({(int(r), int(p) // page) for r, p in meta if r >= 0})
+    fast_slots = rng.choice(P, size=len(pages), replace=False)
+    rows = [[r, lp, int(fast_slots[j]) if j % 3 else -1, r * 3 + lp] for j, (r, lp) in enumerate(pages)]
+    targets = np.asarray(rows, np.int32)
+    jmeta = jnp.asarray(meta)
+    rfk, rfv = jax_compact_ref(jfk, jfv, jlk, jlv, jmeta, jnp.asarray(targets[targets[:, 2] >= 0][:, [0, 1, 2]]))
+    rhk, rhv = jax_compact_ref(jhk, jhv, jlk, jlv, jmeta, jnp.asarray(targets[:, [0, 1, 3]]))
+    log_compact_tiers(fk, fv, hk, hv, lk, lv, torch.from_numpy(meta), torch.from_numpy(targets))
+    for got, want in ((fk, rfk), (fv, rfv), (hk, rhk), (hv, rhv)):
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), np.asarray(want).view(np.int16))
 
 
 def test_cpu_calls_launch_nothing():

@@ -129,3 +129,13 @@ def test_compact_log_matches_jax(setup):
     jstate = jt.compact_log(jkv, jstate, jnp.asarray(fh), jnp.asarray(fo))
     pt.compact_log(kv, state, torch.from_numpy(fh), torch.from_numpy(fo))
     _same_state(jstate, state, ["hbm_k", "hbm_v", "host_k", "host_v", "log_meta", "log_tail", "compacted"])
+
+
+def test_joint_targets_one_row_per_dirty_page():
+    """The two tiers' flush lists become one table: a page resident in the
+    fast pool gets both slots, a parked page -1 for the fast slot; padding
+    rows (request -1) are dropped."""
+    fh = np.asarray([[0, 2, 7], [2, 1, 9], [-1, 0, -1]], np.int32)
+    fo = np.asarray([[0, 2, 16], [1, 0, 6], [2, 1, 13]], np.int32)
+    assert pt.joint_targets(fh, fo) == [[0, 2, 7, 16], [1, 0, -1, 6], [2, 1, 9, 13]]
+    assert pt.joint_targets(torch.from_numpy(fh[:1]), []) == [[0, 2, 7, -1]]
