@@ -42,7 +42,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """One architecture. Families: dense, moe, ssm, hybrid, encdec, vlm
-    (only dense is served by the port so far)."""
+    (the port has dense, moe and vlm so far)."""
 
     name: str
     family: str
@@ -137,7 +137,7 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# registry (the archs the port serves; more come with later families)
+# registry (the dense, moe and vlm archs; more come with later families)
 # ---------------------------------------------------------------------------
 
 
@@ -211,9 +211,190 @@ def smollm_135m_reduced() -> ModelConfig:
     )
 
 
+def qwen25_32b() -> ModelConfig:
+    """qwen2.5-32b [dense]: 64L d_model=5120 40H (GQA kv=8) d_ff=27648
+    vocab=152064 — GQA with QKV bias."""
+    return ModelConfig(
+        name="qwen2.5-32b",
+        family="dense",
+        n_layers=64,
+        d_model=5120,
+        n_heads=40,
+        n_kv_heads=8,
+        d_ff=27_648,
+        vocab=152_064,
+        qkv_bias=True,
+        rope_theta=1_000_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 2},
+    )
+
+
+def qwen25_32b_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-32b-reduced",
+        family="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=160,
+        vocab=128,
+        qkv_bias=True,
+        microbatch={"train_4k": 2},
+    )
+
+
+def mistral_large_123b() -> ModelConfig:
+    """mistral-large-123b [dense]: 88L d_model=12288 96H (GQA kv=8)
+    d_ff=28672 vocab=32768."""
+    return ModelConfig(
+        name="mistral-large-123b",
+        family="dense",
+        n_layers=88,
+        d_model=12_288,
+        n_heads=96,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=28_672,
+        vocab=32_768,
+        rope_theta=1_000_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 1},
+    )
+
+
+def mistral_large_123b_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-large-123b-reduced",
+        family="dense",
+        n_layers=2,
+        d_model=96,
+        n_heads=6,
+        n_kv_heads=2,
+        head_dim=16,
+        d_ff=224,
+        vocab=128,
+        microbatch={"train_4k": 2},
+    )
+
+
+def olmoe_1b_7b() -> ModelConfig:
+    """olmoe-1b-7b [moe]: 16L d_model=2048 16H (kv=16) d_ff=1024 (expert)
+    vocab=50304, MoE 64 experts top-8, qk-norm."""
+    return ModelConfig(
+        name="olmoe-1b-7b",
+        family="moe",
+        n_layers=16,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=16,
+        d_ff=1024,
+        vocab=50_304,
+        qk_norm=True,
+        moe=MoEConfig(num_experts=64, top_k=8, d_ff_expert=1024),
+        rope_theta=10_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 4},
+    )
+
+
+def olmoe_1b_7b_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="olmoe-1b-7b-reduced",
+        family="moe",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=4,
+        d_ff=96,
+        vocab=128,
+        qk_norm=True,
+        moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=96),
+        microbatch={"train_4k": 2},
+    )
+
+
+def llama4_scout() -> ModelConfig:
+    """llama4-scout-17b-a16e [moe]: 48L d_model=5120 40H (GQA kv=8)
+    d_ff=8192 vocab=202048, MoE 16 experts top-1 + a shared expert (the
+    text backbone)."""
+    return ModelConfig(
+        name="llama4-scout-17b-a16e",
+        family="moe",
+        n_layers=48,
+        d_model=5120,
+        n_heads=40,
+        n_kv_heads=8,
+        d_ff=8192,
+        vocab=202_048,
+        moe=MoEConfig(num_experts=16, top_k=1, d_ff_expert=8192, shared_expert=True, d_ff_shared=8192),
+        rope_theta=500_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 1},
+    )
+
+
+def llama4_scout_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="llama4-scout-reduced",
+        family="moe",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=96,
+        vocab=128,
+        moe=MoEConfig(num_experts=4, top_k=1, d_ff_expert=96, shared_expert=True, d_ff_shared=96),
+        microbatch={"train_4k": 2},
+    )
+
+
+def llava_next_34b() -> ModelConfig:
+    """llava-next-34b [vlm]: 60L d_model=7168 56H (GQA kv=8) d_ff=20480
+    vocab=64000; the vision frontend is a stub (precomputed patch
+    embeddings are an input, projected and prepended to the tokens)."""
+    return ModelConfig(
+        name="llava-next-34b",
+        family="vlm",
+        n_layers=60,
+        d_model=7168,
+        n_heads=56,
+        n_kv_heads=8,
+        d_ff=20_480,
+        vocab=64_000,
+        frontend="vision",
+        n_frontend_tokens=1152,  # anyres: base 576 + 576 tile patches (2x2 pooled)
+        rope_theta=5_000_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 1},
+    )
+
+
+def llava_next_34b_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="llava-next-34b-reduced",
+        family="vlm",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=160,
+        vocab=128,
+        frontend="vision",
+        n_frontend_tokens=16,
+        microbatch={"train_4k": 2},
+    )
+
+
 _REGISTRY: Dict[str, Tuple] = {
-    "qwen3-1.7b": (qwen3_1p7b, qwen3_1p7b_reduced),
+    "qwen2.5-32b": (qwen25_32b, qwen25_32b_reduced),
+    "mistral-large-123b": (mistral_large_123b, mistral_large_123b_reduced),
     "smollm-135m": (smollm_135m, smollm_135m_reduced),
+    "qwen3-1.7b": (qwen3_1p7b, qwen3_1p7b_reduced),
+    "olmoe-1b-7b": (olmoe_1b_7b, olmoe_1b_7b_reduced),
+    "llama4-scout-17b-a16e": (llama4_scout, llama4_scout_reduced),
+    "llava-next-34b": (llava_next_34b, llava_next_34b_reduced),
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_REGISTRY)

@@ -119,8 +119,10 @@ def write_prefill_pages(kv_cfg: TieredKVConfig, state: State, req: int, k, v) ->
 
 
 def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
-    """Decode step over the tiered KV state for the dense GQA decoder.
-    Returns step(params, state, tokens, req_ids) -> (next_tokens, state).
+    """Decode step over the tiered KV state for the decoder families
+    (dense, moe, vlm: GQA attention, then SwiGLU or the MoE layer, whose
+    aux loss is dropped as in JAX). Returns
+    step(params, state, tokens, req_ids) -> (next_tokens, state).
 
     The current token's K/V is appended to the write log, layer by layer
     (token-granular, no page read-modify-write: the paper's write path) by
@@ -160,7 +162,7 @@ def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
             )
             x = x + (o.reshape(B, -1) @ p_l["wo"])[:, None]
             h2 = rmsnorm(x, p_l["mlp_norm"], cfg.norm_eps)
-            x = x + _ffn(cfg, p_l, h2)
+            x = x + _ffn(cfg, p_l, h2)[0]
         logits = unembed(cfg, params, x)[:, 0]
         # first index among exact ties, as jnp.argmax
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

@@ -4,6 +4,7 @@
       --tiering skybyte
   PYTHONPATH=src python -m repro_torch.launch.serve --tiering baseline   # dense KV
   PYTHONPATH=src python -m repro_torch.launch.serve --full ...           # full width
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --full ...  # MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu ...     # plain versions
 
 Reports the paper's metrics for the serving analogue: parks (coordinated
@@ -23,7 +24,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.tiering import TieredKVConfig
+from repro_torch.models import dense
 from repro_torch.models.api import ModelSpec
+from repro_torch.models.common import layer_params
+from repro_torch.models.layers import decode_attention, project_qkv, rmsnorm
 from repro_torch.serving.engine import Request, TieredEngine
 
 
@@ -57,6 +61,77 @@ def dense_decode(
         logits, dc = spec.decode_step(params, dc, torch.tensor([[out[-1]]], device=device), pos)
         emit(logits[0])
     return out, gaps
+
+
+def replay_dense(
+    spec: ModelSpec, params, prompts: Dict[int, Sequence[int]],
+    batches: Sequence[Tuple[torch.Tensor, torch.Tensor]], forced: Dict[int, Sequence[int]], device="cuda",
+    routes: Optional[Sequence[torch.Tensor]] = None,
+) -> Dict[int, List[float]]:
+    """The engine's decode steps again, over dense KV caches: the reference
+    of a batch-dependent model (a capacity-bounded MoE routes each row
+    according to the rows beside it, so a batch-1 decode is no reference).
+
+    ``batches``: the engine's steps in order, each its (tokens (B, 1),
+    req_ids (B,)) as given to ``TieredEngine.step_fn`` (padded rows, with
+    request -1, kept: they count in the MoE's capacity). Each request is
+    prefilled alone, as the engine does. Returns, per request, how far each
+    token of ``forced[rid]`` lies below the maximum logit of the step that
+    emitted it (the first from the prefill).
+
+    ``routes``: the (B, k) expert ids the engine's MoE chose, per step and
+    layer in order; given, the replay takes those experts (forced routing,
+    as the tokens are forced). A router's k-th and (k+1)-th logits can lie
+    within the rounding that separates two attention recipes, and one
+    changed choice changes the rows after it (capacity) and every later
+    layer, so a replay of the tokens alone can part from the run for good;
+    forcing keeps the comparison on the arithmetic, and the caller checks
+    that each forced choice is a near tie of the replay's own router."""
+    device = resolve_device(device)
+    cfg = spec.cfg
+    rids = sorted(prompts)
+    slot = {rid: i for i, rid in enumerate(rids)}  # cache row; the last row takes padded rows
+    s_max = max(len(prompts[r]) + len(forced[r]) for r in rids) + 1
+    shape = (cfg.n_layers, len(rids) + 1, s_max, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cache_k = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    cache_v = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    lengths = {}
+    gaps: Dict[int, List[float]] = {rid: [] for rid in rids}
+
+    def gap(rid: int, lg: torch.Tensor) -> None:
+        tok = forced[rid][len(gaps[rid])]
+        gaps[rid].append(float(lg.max().float() - lg[tok].float()))
+
+    for rid in rids:
+        toks = torch.tensor(list(prompts[rid]), dtype=torch.long, device=device)[None]
+        logits, cache = spec.prefill(params, toks)
+        S = len(prompts[rid])
+        cache_k[:, slot[rid], :S] = cache["k"][:, 0]
+        cache_v[:, slot[rid], :S] = cache["v"][:, 0]
+        lengths[rid] = S
+        gap(rid, logits[0])
+    route_iter = iter(routes) if routes is not None else None
+    for tokens, req_ids in batches:
+        req = [int(r) for r in req_ids.tolist()]
+        rows = torch.tensor([slot[r] if r >= 0 else len(rids) for r in req], device=device)
+        pos = torch.tensor([lengths[r] if r >= 0 else 0 for r in req], device=device)
+        x = params["embed"][tokens.to(device).long()]  # (B, 1, d)
+        for layer in range(cfg.n_layers):
+            p_l = layer_params(params, layer)
+            h = rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
+            q, k, v = project_qkv(cfg, dense._attn_params(cfg, p_l), h, pos[:, None])
+            cache_k[layer, rows, pos] = k[:, 0]
+            cache_v[layer, rows, pos] = v[:, 0]
+            o = decode_attention(q, cache_k[layer, rows], cache_v[layer, rows], pos + 1)
+            x = x + o.reshape(len(req), 1, -1) @ p_l["wo"]
+            experts = None if route_iter is None else next(route_iter)
+            x = x + dense._ffn(cfg, p_l, rmsnorm(x, p_l["mlp_norm"], cfg.norm_eps), experts=experts)[0]
+        logits = dense.unembed(cfg, params, x)[:, 0]
+        for i, r in enumerate(req):
+            if r >= 0:
+                gap(r, logits[i])
+                lengths[r] += 1
+    return gaps
 
 
 def baseline_serve(spec, params, prompts: Dict[int, List[int]], n_new: int, device="cuda"):

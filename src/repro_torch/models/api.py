@@ -1,13 +1,15 @@
-"""Model API facade (port of ``repro/models/api.py``) for the dense family.
+"""Model API facade (port of ``repro/models/api.py``) for the dense, moe
+and vlm families.
 
 ``ModelSpec(cfg)`` provides ``schema`` / ``init`` / ``param_count`` and
 ``forward`` / ``prefill`` / ``decode_step`` / ``init_cache``. Other families
-raise ``NotImplementedError`` until their slice of the port lands.
+(encdec, ssm, hybrid) raise ``NotImplementedError`` until their slice of the
+port lands; so does training's ``loss``, not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -22,10 +24,10 @@ class ModelSpec:
 
     @property
     def mod(self):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in dense.FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: family {self.cfg.family!r} is not ported yet "
-                "(ROADMAP.md §1)"
+                "(ROADMAP.md §1 item 7)"
             )
         return dense
 
@@ -40,14 +42,15 @@ class ModelSpec:
         return common.param_count(self.schema())
 
     # ---- compute ----
-    def forward(self, params, tokens, **kw):
-        return self.mod.forward(self.cfg, params, tokens, **kw)
+    def forward(self, params, tokens, frontend: Optional[torch.Tensor] = None, **kw):
+        return self.mod.forward(self.cfg, params, tokens, frontend, **kw)
 
-    def prefill(self, params, tokens) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, params, tokens, frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Full-context forward collecting decode state. Returns
-        (last_logits (B, V), cache with k/v (L, B, S, KV, hd))."""
+        (last_logits (B, V), cache with k/v (L, B, Sf + S, KV, hd)); the
+        cache's ``length`` is the token count S, as in JAX."""
         logits, _, (k, v) = self.forward(
-            params, tokens, collect_kv=True, unembed_last_only=True
+            params, tokens, frontend, collect_kv=True, unembed_last_only=True
         )
         return logits[:, -1], {"k": k, "v": v, "length": tokens.shape[1]}
 

@@ -1,32 +1,35 @@
-"""Decoder-only transformer, dense family (port of ``repro/models/dense.py``).
+"""Decoder-only transformer: families "dense", "moe", "vlm" (port of
+``repro/models/dense.py``).
+
+vlm = dense backbone + stub vision frontend (precomputed patch embeddings
+are an input, projected and prepended to the token sequence).
+moe = dense with the FFN replaced by ``layers.moe_ffn``.
 
 Parameters are the flat dict of ``models.common`` with stacked ``blocks.*``
 entries; the forward pass is a Python loop over layers. Prefill attention
 runs through the hand-written flash-attention kernel
 (``repro_torch.kernels.flash_attention``) where JAX uses
-``layers.chunked_attention``. The MoE and frontend branches belong to a later
-slice of the port.
+``layers.chunked_attention``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import Leaf, Params, layer_params, stacked
-from repro_torch.models.layers import AttnParams, decode_attention, project_qkv, rmsnorm
+from repro_torch.models.layers import AttnParams, decode_attention, moe_ffn, project_qkv, rmsnorm, swiglu
 
-_LATER = "ROADMAP.md §1 item 6 (MoE and VLM families through dense.py)"
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "moe" or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is {_LATER}")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md §1 item 7)"
+        )
 
 
 def schema(cfg: ModelConfig) -> Dict[str, Any]:
@@ -44,9 +47,6 @@ def schema(cfg: ModelConfig) -> Dict[str, Any]:
             "wv": stacked(L, (d, KV * hd), ("embed", "kv")),
             "wo": stacked(L, (H * hd, d), ("heads", "embed")),
             "mlp_norm": stacked(L, (d,), (None,), init="ones"),
-            "w_gate": stacked(L, (d, Ff), ("embed", "ffn")),
-            "w_up": stacked(L, (d, Ff), ("embed", "ffn")),
-            "w_down": stacked(L, (Ff, d), ("ffn", "embed")),
         },
     }
     b = s["blocks"]
@@ -57,8 +57,26 @@ def schema(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.qk_norm:
         b["q_norm"] = stacked(L, (hd,), (None,), init="ones")
         b["k_norm"] = stacked(L, (hd,), (None,), init="ones")
+    if cfg.family == "moe":
+        m = cfg.moe
+        E, f = m.num_experts, m.d_ff_expert
+        b["router"] = stacked(L, (d, E), ("embed", None), scale=0.02)
+        b["we_gate"] = stacked(L, (E, d, f), ("experts", "embed", None))
+        b["we_up"] = stacked(L, (E, d, f), ("experts", "embed", None))
+        b["we_down"] = stacked(L, (E, f, d), ("experts", None, "embed"))
+        if m.shared_expert:
+            fs = m.d_ff_shared or Ff
+            b["ws_gate"] = stacked(L, (d, fs), ("embed", "ffn"))
+            b["ws_up"] = stacked(L, (d, fs), ("embed", "ffn"))
+            b["ws_down"] = stacked(L, (fs, d), ("ffn", "embed"))
+    else:
+        b["w_gate"] = stacked(L, (d, Ff), ("embed", "ffn"))
+        b["w_up"] = stacked(L, (d, Ff), ("embed", "ffn"))
+        b["w_down"] = stacked(L, (Ff, d), ("ffn", "embed"))
     if not cfg.tie_embeddings:
         s["lm_head"] = Leaf((d, V), ("embed", "vocab"), scale=0.02)
+    if cfg.frontend is not None:
+        s["frontend_proj"] = Leaf((d, d), ("embed", None), scale=0.02)
     return s
 
 
@@ -70,31 +88,43 @@ def _attn_params(cfg: ModelConfig, p: Params) -> AttnParams:
     )
 
 
-def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (silu in fp32, as the JAX recipe)."""
-    _check_family(cfg)
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"]
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, aux: bool = False, experts=None):
+    """SwiGLU (silu in fp32, as the JAX recipe) or the MoE layer (``experts``:
+    forced expert ids, see ``moe_ffn``). Returns (out, aux_loss): with
+    ``aux`` the MoE's fp32 scalar tensor, else (and for a dense layer) the
+    float 0.0 — no device op for a loss the caller drops (JAX's compiled
+    prefill and decode drop it the same way)."""
+    if cfg.family == "moe":
+        shared = (p["ws_gate"], p["ws_up"], p["ws_down"]) if cfg.moe.shared_expert else None
+        return moe_ffn(cfg, x, p["router"], p["we_gate"], p["we_up"], p["we_down"], shared, aux=aux,
+                       experts=experts)
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
 def _block(
-    cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One layer. Returns (x_out, k, v)."""
+    cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, aux: bool,
+):
+    """One layer. Returns (x_out, aux_loss (0.0 without ``aux``), k, v)."""
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = project_qkv(cfg, _attn_params(cfg, p), h, positions)
     o = flash_attention(q, k, v, causal=True)
     o = o.reshape(*o.shape[:2], -1)
     x = x + o @ p["wo"]
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    x = x + _ffn(cfg, p, h)
-    return x, k, v
+    f, aux_loss = _ffn(cfg, p, h, aux)
+    return x + f, aux_loss, k, v
 
 
-def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def embed_inputs(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Token embeddings (B, S, d); a vlm's frontend embeddings (B, Sf, d)
+    are projected and prepended."""
+    x = params["embed"][tokens]
+    if cfg.frontend is not None and frontend is not None:
+        fe = frontend.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -108,32 +138,36 @@ def forward(
     cfg: ModelConfig,
     params: Params,
     tokens: torch.Tensor,  # (B, S) integer
+    frontend: Optional[torch.Tensor] = None,  # (B, Sf, d) for a vlm
     *,
     collect_kv: bool = False,
     unembed_last_only: bool = False,
 ):
     """Full-sequence forward. Returns (logits, aux_loss, kv | None).
 
-    kv (if collected): (k, v) each (L, B, S, KV, hd) — the prefill cache.
+    kv (if collected): (k, v) each (L, B, Sf + S, KV, hd) — the prefill
+    cache; aux_loss is then 0, as in JAX (the sum over layers otherwise).
     ``unembed_last_only`` skips the (B, S, V) logit tensor (prefill path).
     """
     _check_family(cfg)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, frontend)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     ks, vs = [], []
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.n_layers):
-        x, k, v = _block(cfg, layer_params(params, layer), x, positions)
+        x, aux, k, v = _block(cfg, layer_params(params, layer), x, positions, aux=not collect_kv)
         if collect_kv:
             ks.append(k)
             vs.append(v)
+        else:
+            total_aux = total_aux + aux
     if unembed_last_only:
         x = x[:, -1:]
     logits = unembed(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if collect_kv:
-        return logits, aux, (torch.stack(ks), torch.stack(vs))
-    return logits, aux, None
+        return logits, total_aux, (torch.stack(ks), torch.stack(vs))
+    return logits, total_aux, None
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +209,7 @@ def decode_step(
         o = decode_attention(q, cache["k"][layer], cache["v"][layer], pos + 1)
         x = x + o.reshape(B, 1, -1) @ p_l["wo"]
         h = rmsnorm(x, p_l["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(cfg, p_l, h)
+        x = x + _ffn(cfg, p_l, h)[0]
     logits = unembed(cfg, params, x)[:, 0]
     cache["length"] = pos + 1
     return logits, cache

@@ -1,9 +1,10 @@
 """Shared transformer building blocks (port of ``repro/models/layers.py``).
 
 Plain functions on tensors, following the JAX arithmetic recipes: rmsnorm in
-fp32, rope in fp32, and decode attention's value contraction with the
-softmax weights rounded to the cache dtype first. ``shard_hint`` and
-``use_weight`` are gone: they do nothing without a mesh.
+fp32, rope in fp32, silu in fp32, decode attention's value contraction with
+the softmax weights rounded to the cache dtype first, and the MoE layer's
+capacity-bounded dispatch (same routing order, same drops). ``shard_hint``
+and ``use_weight`` are gone: they do nothing without a mesh.
 """
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, MoEConfig
 
 NEG_INF = -1e30  # finite mask value: -inf - -inf would be NaN
 
@@ -40,6 +42,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu((x @ w_gate).float()).to(x.dtype) * (x @ w_up)
+    return h @ w_down
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +96,7 @@ def decode_attention(
     q: torch.Tensor,  # (B, 1, H, hd)
     k_cache: torch.Tensor,  # (B, S_max, KV, hd)
     v_cache: torch.Tensor,
-    length: int,  # valid prefix length (uniform across batch)
+    length,  # int, or (B,) integer tensor: valid prefix length
 ) -> torch.Tensor:
     """Single-token attention against a dense KV cache."""
     B, _, H, hd = q.shape
@@ -99,10 +106,118 @@ def decode_attention(
     # scores are formed in the cache dtype, then widened (JAX's recipe)
     scores = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float()
     scores = scores / torch.tensor(math.sqrt(hd), dtype=torch.float32)
-    valid = torch.arange(S_max, device=q.device)[None, :] < length  # (1, S)
+    pos = torch.arange(S_max, device=q.device)[None, :]
+    valid = pos < (length if isinstance(length, int) else length.reshape(-1, 1))  # (1 or B, S)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     # the weights are rounded to the cache dtype before w·v: the tiered
     # engine's paged path shares this recipe so greedy tokens agree
     out = torch.einsum("bkgs,bskh->bkgh", w.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_route(m: MoEConfig, xt: torch.Tensor, w_router: torch.Tensor):
+    """Router: xt (T, d) -> (fp32 logits (T, E), probs, renormalised top-k
+    gates (T, k), expert ids (T, k) int64). The top k in descending order,
+    ties to the lower expert id (``lax.top_k``'s order: a stable descending
+    sort)."""
+    logits = (xt @ w_router).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, idx = gate_vals[:, : m.top_k], idx[:, : m.top_k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    return logits, probs, gate_vals, idx
+
+
+def moe_slots(idx: torch.Tensor, num_experts: int, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slot of each (token, choice) in its expert's capacity buffer, claimed
+    in token-major, choice-minor order: (pos (T, k), keep (T, k) bool, False
+    where the expert was full)."""
+    T, k = idx.shape
+    flat = F.one_hot(idx, num_experts).to(torch.int32).reshape(T * k, num_experts)
+    pos = (torch.cumsum(flat, dim=0) * flat - 1).amax(dim=-1).reshape(T, k)
+    return pos, (pos < cap) & (pos >= 0)
+
+
+def moe_dispatch(xt: torch.Tensor, idx, pos, keep, num_experts: int, cap: int) -> torch.Tensor:
+    """The experts' (E, cap, d) input buffers, empty slots zero. Each kept
+    slot receives exactly one row, so a plain write (no accumulation) gives
+    the bits of JAX's add onto zeros; dropped pairs go to a spare row."""
+    d, k = xt.shape[1], idx.shape[1]
+    dest = torch.where(keep, idx * cap + pos, num_experts * cap).reshape(-1)
+    buf = torch.zeros((num_experts * cap + 1, d), dtype=xt.dtype, device=xt.device)
+    buf[dest] = xt[:, None].expand(-1, k, -1).reshape(-1, d)
+    return buf[: num_experts * cap].view(num_experts, cap, d)
+
+
+def moe_experts(dispatch: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """Every expert's SwiGLU over its whole buffer (silu in fp32)."""
+    h = torch.bmm(dispatch, w_gate)
+    u = torch.bmm(dispatch, w_up)
+    h = F.silu(h.float()).to(dispatch.dtype) * u
+    return torch.bmm(h, w_down)
+
+
+def moe_combine(eo: torch.Tensor, idx, pos, gate_vals, cap: int) -> torch.Tensor:
+    """(T, d): each token's gated sum of its choices' expert outputs, the
+    gates rounded to the activation dtype first; a dropped pair (gate 0)
+    gathers slot clip(pos)."""
+    gathered = eo[idx, pos.clamp(0, cap - 1)]  # (T, k, d)
+    return torch.einsum("tk,tkd->td", gate_vals.to(eo.dtype), gathered)
+
+
+def moe_ffn(
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d)
+    w_router: torch.Tensor,  # (d, E)
+    w_gate: torch.Tensor,  # (E, d, f)
+    w_up: torch.Tensor,  # (E, d, f)
+    w_down: torch.Tensor,  # (E, f, d)
+    shared: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    *,
+    aux: bool = True,
+    experts: Optional[torch.Tensor] = None,
+):
+    """Top-k capacity-bounded MoE. Returns (out, aux_loss).
+
+    Each expert takes ``cap = max(1, int(T * k * capacity_factor / E))``
+    (token, choice) pairs, T counting every row given (padded rows too);
+    pairs claim slots in token-major, choice-minor order, and a pair past
+    its expert's capacity is dropped (gate 0). Every expert runs on its
+    whole (cap, d) buffer, empty slots included, as in JAX. ``aux=False``
+    (prefill and decode, whose callers drop the loss) skips the aux loss and
+    returns 0.0 in its place. ``experts`` (T, k): the expert ids to use in
+    place of the router's top k, in that order, with the router's
+    probabilities at them renormalised as gates — a replay forced to the
+    routing a run recorded (``launch/serve.py::replay_dense``)."""
+    m: MoEConfig = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E = m.num_experts
+    cap = max(1, int(T * m.top_k * m.capacity_factor / E))
+    xt = x.reshape(T, d)
+
+    logits, probs, gate_vals, idx = moe_route(m, xt, w_router)
+    if experts is not None:
+        idx = experts
+        gate_vals = probs.gather(-1, idx)
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    pos, keep = moe_slots(idx, E, cap)
+    eo = moe_experts(moe_dispatch(xt, idx, pos, keep, E, cap), w_gate, w_up, w_down)
+    out = moe_combine(eo, idx, pos, gate_vals * keep, cap)
+    if shared is not None:
+        out = out + swiglu(xt, *shared)
+    if not aux:
+        return out.reshape(B, S, d), 0.0
+
+    # aux losses (load balance + router z)
+    me = probs.mean(0)  # (E,)
+    ce = (F.one_hot(idx, E).sum(1) > 0).float().mean(0)
+    lb = E * torch.sum(me * ce) * m.load_balance_loss
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * m.router_z_loss
+    return out.reshape(B, S, d), lb + z

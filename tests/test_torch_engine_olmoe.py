@@ -1,0 +1,14 @@
+"""Port TieredEngine vs the JAX engine on reduced olmoe-1b-7b (top-2 of 8
+experts, capacity-bounded): ServeStats equal, every token a near tie of the
+replay of the engine's own batches (see check_moe_case)."""
+import pytest
+
+from test_torch_engine_cases import check_moe_case
+
+
+@pytest.mark.parametrize("case", ["compaction", "pool_pressure"])
+def test_olmoe_engine_matches_jax_and_replay(case):
+    stats, _ = check_moe_case(case, "olmoe-1b-7b")
+    assert stats.compactions > 0
+    if case == "pool_pressure":
+        assert stats.parks > 0 and stats.promoted_pages > 0

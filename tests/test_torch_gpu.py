@@ -28,7 +28,8 @@ from repro_torch.kernels.log_compact.ops import log_compact, log_compact_tiers
 from repro_torch.kernels.log_compact.ref import log_compact_ref, log_compact_tiers_ref
 from repro_torch.kernels.paged_attention.ops import _paged_attention_cuda, paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref, paged_decode_attention_split_ref
-from repro_torch.launch.serve import dense_decode
+from repro_torch.launch.serve import dense_decode, replay_dense
+from repro_torch.models import layers
 from repro_torch.models.layers import AttnParams
 from repro_torch.models.api import ModelSpec
 from repro_torch.serving.engine import Request, TieredEngine
@@ -67,6 +68,7 @@ def _bits_equal(a, b):
 @pytest.mark.parametrize("B,H,KV,hd,page,P,N", [
     (2, 4, 2, 32, 8, 8, 3), (3, 8, 4, 64, 16, 16, 4), (1, 6, 2, 16, 4, 6, 5), (4, 4, 4, 128, 8, 12, 2),
     (4, 16, 8, 128, 16, 96, 40),  # full width
+    (4, 16, 16, 128, 16, 96, 40),  # full width, group size 1 (olmoe-1b-7b)
 ])
 def test_paged_attention_kernel(cuda, B, H, KV, hd, page, P, N, dtype):
     rng = np.random.default_rng(B * 100 + H)
@@ -103,12 +105,14 @@ def test_paged_attention_log_merge_and_padded_row(cuda):
 
 
 @pytest.mark.parametrize("pages_per_split", [None, 3, 7])
-def test_paged_attention_full_width_splits(cuda, pages_per_split):
-    """Full width (q (4,16,128), pool (96,16,8,128), table (4,40), log of 64):
-    3 pages a split leaves a partial last split; row 2 has length 0 and no
-    log (every split empty); row 3 is padding."""
+@pytest.mark.parametrize("KV", [8, 16])
+def test_paged_attention_full_width_splits(cuda, KV, pages_per_split):
+    """Full width (q (4,16,128), pool (96,16,KV,128), table (4,40), log of
+    64; KV 8: qwen3-1.7b, 16: olmoe-1b-7b, a group of one): 3 pages a split
+    leaves a partial last split; row 2 has length 0 and no log (every split
+    empty); row 3 is padding."""
     rng = np.random.default_rng(12)
-    B, H, KV, hd, page, P, N, S = 4, 16, 8, 128, 16, 96, 40, 64
+    B, H, hd, page, P, N, S = 4, 16, 128, 16, 96, 40, 64
     q = _rand(rng, (B, H, hd), "bfloat16", cuda)
     kp, vp = _rand(rng, (P, page, KV, hd), "bfloat16", cuda), _rand(rng, (P, page, KV, hd), "bfloat16", cuda)
     lk, lv = _rand(rng, (S, KV, hd), "bfloat16", cuda), _rand(rng, (S, KV, hd), "bfloat16", cuda)
@@ -140,6 +144,7 @@ def test_paged_attention_full_width_splits(cuda, pages_per_split):
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16), (1, 13, 4, 2, 16), (2, 35, 6, 3, 128),
     (1, 381, 16, 8, 128),  # full width, ragged prompt
+    (1, 517, 16, 16, 128),  # full width, group size 1 (olmoe-1b-7b)
 ])
 def test_flash_attention_kernel(cuda, B, S, H, KV, hd, causal, dtype):
     rng = np.random.default_rng(S + H)
@@ -236,6 +241,7 @@ def _epilogue_case(rng, dev, dtype, L, S, B, H, KV, hd, bias, qk_norm):
 @pytest.mark.parametrize("L,S,B,H,KV,hd,tail", [
     (2, 16, 4, 4, 2, 16, 5), (3, 32, 3, 8, 4, 32, 17), (2, 32, 2, 6, 2, 64, 30),
     (2, 64, 4, 16, 8, 128, 20),  # full width (qwen3-1.7b: qk-norm, no bias)
+    (2, 64, 4, 16, 16, 128, 20),  # full width, group size 1 (olmoe-1b-7b: 4 x 48 head rows)
 ])
 def test_qkv_log_append_kernel(cuda, L, S, B, H, KV, hd, tail, bias, qk_norm, dtype):
     """The fused K/V epilogue and append against its plain version, layer
@@ -302,6 +308,7 @@ def test_qkv_log_append_raises(cuda):
 @pytest.mark.parametrize("L,P,HP,page,KV,hd,S,span", [
     (2, 10, 12, 8, 2, 16, 32, 24), (1, 10, 12, 16, 4, 32, 16, 48), (3, 32, 30, 4, 2, 64, 48, 40),
     (28, 96, 320, 16, 8, 128, 64, 48),  # full width; positions repeat: later slot wins
+    (16, 96, 320, 16, 16, 128, 64, 48),  # olmoe-1b-7b: 4 KB rows, ~66 KB of shared memory a block
 ])
 def test_log_compact_tiers_kernel(cuda, L, P, HP, page, KV, hd, S, span):
     """Both tiers in one launch against the plain two-tier compaction, bit
@@ -376,3 +383,61 @@ def test_engine_on_the_card(cuda):
     for rid, p in prompts.items():
         _, gaps = dense_decode(spec, params, p, 20, forced=eng.requests[rid].out, device="cuda")
         assert max(gaps) <= 2e-2, (rid, gaps)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-a16e"])
+def test_moe_engine_on_the_card(cuda, arch, monkeypatch):
+    """Reduced MoE archs through the engine on the card: the same launch
+    counts and ServeStats as the CPU run (the policy depends on lengths
+    only), every flash call on the tensor-core route, and each emitted token
+    within 0.02 of the max logit of ``replay_dense`` over the engine's own
+    batches with its routing forced (a capacity MoE depends on the batch
+    beside each row, and a router near-tie can fall either way between the
+    paged kernel's rounding and the dense decode's), every routed expert
+    within 1/16 of the replay router's own k-th largest logit."""
+    spec = ModelSpec(get_reduced(arch))
+    kv = TieredKVConfig(page_size=8, n_hbm_pages=16, max_requests=4, max_pages_per_req=12,
+                        log_slots=32, batch=2, promote_pages_per_step=2)
+    prompts = {0: list(range(7, 27)), 1: list(range(40, 75)), 2: list(range(5, 18))}
+    route = layers.moe_route
+
+    def recording(into):  # moe_route, keeping the decode steps' (logits, expert ids)
+        def run(m, xt, w_router):
+            out = route(m, xt, w_router)
+            if xt.shape[0] == kv.batch:
+                into.append((out[0], out[3]))
+            return out
+        return run
+
+    stats, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = spec.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        eng = TieredEngine(spec, params, kv, device=dev)
+        batches, inner, routes = [], eng.step_fn, []
+
+        def step(params_, state, tokens, req_ids, inner=inner, batches=batches):
+            batches.append((tokens, req_ids))  # the step's inputs, as the engine gives them
+            return inner(params_, state, tokens, req_ids)
+
+        eng.step_fn = step
+        monkeypatch.setattr(layers, "moe_route", recording(routes))
+        reset_launch_counts()
+        for rid, p in prompts.items():
+            eng.add_request(Request(rid=rid, prompt=p, max_new_tokens=20))
+        stats[dev] = vars(eng.run(max_steps=2000))
+        counts[dev] = launch_counts()
+    layers_, steps = spec.cfg.n_layers, stats["cuda"]["steps"]
+    assert counts["cuda"] == {"paged_attention": layers_ * steps, "kv_log_append": layers_ * steps,
+                              "flash_attention": layers_ * len(prompts), "log_compact": stats["cuda"]["compactions"]}
+    assert route_counts()["tensor_core"] == layers_ * len(prompts)
+    assert stats["cuda"] == stats["cpu"]
+    forced = {rid: eng.requests[rid].out for rid in prompts}
+    replayed = []
+    monkeypatch.setattr(layers, "moe_route", recording(replayed))
+    gaps = replay_dense(spec, params, prompts, batches, forced, device="cuda", routes=[idx for _, idx in routes])
+    assert max(max(g) for g in gaps.values()) <= 2e-2, gaps
+    assert len(replayed) == len(routes) == steps * layers_
+    for i, ((_, ran), (logits, own)) in enumerate(zip(routes, replayed)):
+        live = batches[i // layers_][1] >= 0
+        below = logits.gather(-1, own[:, -1:]) - logits.gather(-1, ran)
+        assert float(below.amax(-1)[live].max()) <= 1 / 16, (i, below)

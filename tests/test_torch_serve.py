@@ -36,6 +36,15 @@ def test_serve_cli_on_cpu(tiering):
         assert "parks (ctx switches)" in out and "coalesce ratio" in out
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-a16e", "llava-next-34b"])
+def test_serve_cli_moe_and_vlm_on_cpu(arch):
+    """The launcher serves the moe and vlm archs (the vlm's text only, as in
+    JAX) through the tiered engine."""
+    out = _serve("--arch", arch, "--tiering", "skybyte")
+    assert "[serve/skybyte] 36 tokens" in out
+    assert "completed requests        : 3/3" in out
+
+
 def test_missing_card_is_an_error():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")

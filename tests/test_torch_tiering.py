@@ -1,5 +1,7 @@
 """Tiered KV runtime (core/tiering.py): port vs JAX on the same state and
-weights (CPU, reduced qwen3-1.7b, bf16 state as the engine keeps it)."""
+weights (CPU, reduced qwen3-1.7b and reduced olmoe-1b-7b — the MoE layer at
+a decode batch of 4, whose capacity of one slot an expert drops choices —
+bf16 state as the engine keeps it)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ from repro.models.api import ModelSpec as JaxSpec
 from repro_torch import bridge, configs
 from repro_torch.core import tiering as pt
 from repro_torch.models.api import ModelSpec
+from test_torch_engine_cases import jax_exact
 
 torch.set_num_threads(2)
 
@@ -33,13 +36,13 @@ def _bits(x):
     return x.view(np.int16) if x.dtype.name == "bfloat16" else x
 
 
-@pytest.fixture(scope="module")
-def setup():
+@pytest.fixture(scope="module", params=["qwen3-1.7b", "olmoe-1b-7b"])
+def setup(request):
     """Both runtimes in the same mid-serving state: two requests prefilled
     into the host tier, some of their pages promoted, a few tokens logged."""
-    jspec = JaxSpec(jax_get_reduced("qwen3-1.7b"))
+    jspec = JaxSpec(jax_get_reduced(request.param))
     jparams = jspec.init(jax.random.PRNGKey(1))
-    spec = ModelSpec(configs.get_reduced("qwen3-1.7b"))
+    spec = ModelSpec(configs.get_reduced(request.param))
     params = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     jkv, kv = jt.TieredKVConfig(**KV_CFG), pt.TieredKVConfig(**KV_CFG)
     jstate = jt.init_state(jkv, jspec.cfg, dtype=jnp.bfloat16)
@@ -79,15 +82,18 @@ def test_prefill_placement_and_copy_match(setup):
 
 
 def _jax_step(jspec, jkv):
-    """JAX's decode step run op by op. Under jit, XLA may fuse elementwise
-    ops and skip their intermediate bf16 roundings (excess precision), which
-    moves later layers by an ulp; op by op, every op rounds as the port's
-    eager ops do, and the two agree bit for bit."""
+    """JAX's decode step with every bf16 rounding kept. Under a plain jit,
+    XLA may fuse elementwise ops and skip their intermediate bf16 roundings
+    (excess precision), which moves later layers by an ulp; compiled
+    without it (``jax_exact``, the bits of running it op by op), every op
+    rounds as the port's eager ops do, and the two agree bit for bit."""
     step = jt.build_paged_decode_step(jspec, jkv)
+    compiled = []
 
     def run(*args):
-        with jax.disable_jit():
-            return step(*args)
+        if not compiled:
+            compiled.append(jax_exact(step, *args))
+        return compiled[0](*args)
 
     return run
 
