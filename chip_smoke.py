@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; so does a missing card):
      (the K/V epilogue fused in: bias, qk-norm, RoPE, append), and alone;
      log compaction into both tiers in one launch, and into one pool. Once
      at qwen3-1.7b's shapes (GQA group of 2) and once at olmoe-1b-7b's
-     (16 KV heads of 16 query heads: a group of 1).
+     (16 KV heads of 16 query heads: a group of 1); flash attention also at
+     phase 6's shapes (whisper's encoder and cross-attention, non-causal;
+     zamba2's shared block at head dim 112).
   4. serving — full-width qwen3-1.7b (random weights from a seed) through
      the port's TieredEngine: every kernel launched as often as the
      deterministic policy requires, every flash call on the tensor-core
@@ -37,6 +39,22 @@ Phases (any failure exits non-zero; so does a missing card):
      replay router's own k-th logit); the exact-match rate against a
      batch-1 dense decode is printed for information. The profiled window
      adds the MoE's share of the device time by phase.
+  6. serving, other families — full-width whisper-base, rwkv6-3b and
+     zamba2-7b (random weights from the seed) through the step builders
+     (``launch/steps.py``: prefill, then greedy decode), as JAX serves
+     them: 4 prompts of 381 tokens (whisper: frames (4, 103, 512) from the
+     seed, so the cross cache needs no padding) and 32 tokens each. Checks:
+     the prefill's flash launches exact (whisper 18: 6 encoder + 6 self + 6
+     cross; zamba2 13, at head dim 112; rwkv6 0), all on the tensor-core
+     route; the family's invariant, decode (the one-token recurrence) equal
+     to the teacher-forced forward (the chunked scan) on the run's tokens,
+     in fp32 on the same weights within SCAN_TOL; the teacher-forced bf16
+     decode reproduces the served tokens, and each served token lies within
+     max(NEAR_TIE, 2 x the bf16 noise measured against fp32) of the bf16
+     forward's maximum (random full-width weights amplify bf16 rounding to
+     O(1) logits: ROADMAP.md §3). Prints tok/s, a profiled window of 4
+     decode steps (device busy, device ops, idle share) and the decode floor
+     (bytes a step must move at 3.35 TB/s).
 
 The line before the last is the card as nvidia-smi names it, the one
 before that a JSON object with one entry per kernel, and the last line
@@ -71,8 +89,22 @@ EXPECTED_LAUNCHES = {
     "qwen3-1.7b": {"paged_attention": 3584, "log_compact": 7, "kv_log_append": 3584, "flash_attention": 224},
     "olmoe-1b-7b": {"paged_attention": 2048, "log_compact": 7, "kv_log_append": 2048, "flash_attention": 128},
 }
+# phase 6: the families JAX serves through its step builders
+FAMILY_ARCHS = ("whisper-base", "rwkv6-3b", "zamba2-7b")
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 381, 32  # 381: the chunked scans pad
+FAMILY_FLASH = {"whisper-base": 18, "rwkv6-3b": 0, "zamba2-7b": 13}  # prefill launches
+# flash attention at phase 6's shapes: (name, B, S, S_kv, H, KV, hd, causal)
+FLASH_FAMILY_SHAPES = (
+    ("whisper-base encoder", 4, 103, 103, 8, 8, 64, False),
+    ("whisper-base cross-attention", 4, 381, 103, 8, 8, 64, False),
+    ("zamba2-7b shared block", 4, 381, 381, 32, 32, 112, True),
+)
 MOE_PHASES = ("moe_route", "moe_slots", "moe_dispatch", "moe_experts", "moe_combine")
 NEAR_TIE = 0.125  # logits at full width reach ~4, where bf16 spacing is 1/32
+# phase 6, fp32: the recurrence against the chunked scan at full depth, on
+# logits of std ~1 (scripts/scan_precision_probe.py on an H100: 1.2e-3 at
+# rwkv6-3b's 32 layers, 1.3e-4 at zamba2-7b's 81; a wrong scan is off by ~1)
+SCAN_TOL = 1e-2
 # Full-width olmoe-1b-7b (random weights; the experts' init std is 1/8, as
 # JAX's fan-in rule gives) amplifies a bf16 rounding difference over its
 # layers: with paged attention's plain version in the engine (the dense
@@ -451,12 +483,24 @@ def check_kernels(full):
         if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
             raise AssertionError("log_compact (one pool): kernel and plain version differ")
     pk, pv = outs[0]
+    flat_one = [t.view(L, -1, KV, hd) for t in (pk, pv)]
+
+    def library_compact_one():  # index_copy_ of the matched log rows into the one pool
+        for log, fast in ((lk, flat_one[0]), (lv, flat_one[1])):
+            fast.index_copy_(1, dst_fast, log.index_select(1, src))
+
+    check = [pk.clone(), pv.clone()]
+    library_compact_one()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(check, (pk, pv))):
+        raise AssertionError("log_compact: the one-pool index_copy_ yardstick computes another function")
+    del check
     rows["log_compact"]["extra"] = [dict(shape="one pool (log_compact)", **timed(
         lambda: log_compact(pk, pv, lk, lv, cmeta, one_pool),
         lambda: log_compact_ref(pk, pv, lk, lv, cmeta, one_pool),
-        None, 0.0, bound_ms(2 * moved + cmeta.numel() * 4 + one_pool.numel() * 4, 0.0),
+        library_compact_one, 0.0, bound_ms(2 * moved + cmeta.numel() * 4 + one_pool.numel() * 4, 0.0),
     ))]
-    del fk, fv, hk, hv, pools, flat, outs, pk, pv
+    del fk, fv, hk, hv, pools, flat, flat_one, outs, pk, pv
     torch.cuda.empty_cache()
 
     def show(name, r):
@@ -473,6 +517,197 @@ def check_kernels(full):
         for x in r.get("extra", []):
             show(f"{name} {x['shape']}", x)
     return rows
+
+
+def check_flash_family_shapes():
+    """Phase 3, flash attention at phase 6's shapes (bf16, tensor-core
+    route): rows for the flash entry's ``extra``."""
+    from repro_torch.kernels import reset_launch_counts, route_counts
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES:
+        fq = torch.randn((B, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+        fk, fv = (torch.randn((B, S_kv, KV, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        reset_launch_counts()
+        got = flash_attention(fq, fk, fv, causal=causal)
+        if route_counts() != {"tensor_core": 1, "cuda_core": 0}:
+            raise AssertionError(f"flash attention ({name}) did not take the tensor-core route: {route_counts()}")
+        err = check_close(f"flash attention {name}", got, flash_attention_ref(fq, fk, fv, causal=causal),
+                          TOL["flash_attention"])
+        qt, kt, vt = (t.transpose(1, 2) for t in (fq, fk.repeat_interleave(H // KV, 2), fv.repeat_interleave(H // KV, 2)))
+        pairs = S * (S + 1) // 2 if causal else S * S_kv
+        rows.append(dict(shape=f"{name}: B={B} S={S} S_kv={S_kv} H={H} KV={KV} hd={hd} "
+                               f"{'causal' if causal else 'non-causal'}", **timed(
+            lambda: flash_attention(fq, fk, fv, causal=causal),
+            lambda: flash_attention_ref(fq, fk, fv, causal=causal),
+            lambda: sdpa(qt, kt, vt, is_causal=causal), err,
+            bound_ms(2 * (2 * fq.numel() + 2 * fk.numel()), 4.0 * B * H * hd * pairs),
+        )))
+    for r in rows:
+        lib_dev = "not measured" if r["library_device_ms"] is None else f"{r['library_device_ms']:.4f}"
+        print(f"  flash attention {r['shape']}: err {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}, {r['device_ops']:.0f} ops)  plain {r['plain_ms']:.4f} ms (device "
+              f"{r['plain_device_ms']:.4f})  sdpa {r['library_ms']:.4f} ms (device {lib_dev})  "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return rows
+
+
+def decode_floor_bytes(cfg, params, cache, pos: int, batch: int) -> int:
+    """Bytes one decode step must move at ``pos``: the weights it reads (the
+    embedding's ``batch`` rows, not the table; not the encoder; zamba2's
+    shared block once per invocation), the recurrent state read and
+    written, and the valid K/V rows its attention reads."""
+    from repro_torch.models.mamba2 import _split_counts
+
+    skip = ("embed", "frontend_proj", "enc_norm")
+    n = sum(t.numel() * t.element_size() for k, t in params.items() if k not in skip and not k.startswith("enc."))
+    n += batch * cfg.d_model * params["embed"].element_size()
+    if cfg.family == "hybrid":
+        shared = sum(t.numel() * t.element_size() for k, t in params.items() if k.startswith("shared_attn."))
+        n += (_split_counts(cfg)[0] - 1) * shared
+    for key, t in cache.items():
+        if key in ("wkv", "tm_prev", "cm_prev", "conv", "ssm"):
+            n += 2 * t.numel() * t.element_size()  # read and written
+        elif key in ("k", "v", "attn_k", "attn_v"):
+            n += t[:, :, :pos + 1].numel() * t.element_size()  # the valid rows
+        elif key in ("ck", "cv"):
+            n += t.numel() * t.element_size()
+    return n
+
+
+def serve_family(cfg, card):
+    """Phase 6: full-width ``cfg`` through ``build_prefill_step`` and
+    ``build_serve_step``. Returns the main run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step, decode_cache
+    from repro_torch.models.api import ModelSpec
+
+    dev = torch.device("cuda")
+    spec = ModelSpec(cfg)
+    B, S, n = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW
+    max_len = S + n
+    params = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab - 1, size=(B, S)).astype(np.int32)).to(dev)
+    frontend = None
+    if cfg.family == "encdec":  # max_len // 4 frames: the cross cache is exactly the frames
+        frontend = torch.from_numpy(rng.normal(size=(B, max_len // 4, cfg.d_model)).astype(np.float32))
+        frontend = frontend.to(dev, torch.bfloat16)
+    weights = sum(t.numel() * t.element_size() for t in params.values())
+    print(f"  config {cfg.name}: {spec.param_count() / 1e9:.3f} B params ({weights / 1e9:.3f} GB); "
+          f"{B} prompts of {S} tokens, {n} tokens each"
+          + ("" if frontend is None else f"; frames {tuple(frontend.shape)}"))
+    prefill_step, serve_step = build_prefill_step(spec), build_serve_step(spec)
+
+    def into_decode_cache(cache):
+        return decode_cache(spec, cache, B, max_len, device=dev)
+
+    def generate(n_tokens):
+        tok, cache = prefill_step(params, prompt, frontend)
+        dc = into_decode_cache(cache)
+        toks = [tok]
+        for i in range(n_tokens - 1):
+            tok, dc = serve_step(params, dc, tok, S + i)
+            toks.append(tok)
+        return torch.cat(toks, dim=1)
+
+    generate(2)  # first calls: cuBLAS set-up, allocator
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(n)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, routes = launch_counts(), route_counts()
+    print(f"  launches {counts}; flash routes {routes}; tok/s {B * n / dt:.1f} ({B * n} tokens in {dt:.3f}s, "
+          f"prefill included) — on {card}")
+    want = {name: 0 for name in counts}
+    want["flash_attention"] = FAMILY_FLASH[cfg.name]
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} differ from {want}")
+    if routes != {"tensor_core": FAMILY_FLASH[cfg.name], "cuda_core": 0}:
+        raise AssertionError(f"a flash call missed the tensor-core route: {routes}")
+
+    # a decode step's time: 4 steps untraced, then 4 under the profiler
+    tok, dc = prefill_step(params, prompt, frontend)
+    dc = into_decode_cache(dc)
+    for i in range(4):
+        tok, dc = serve_step(params, dc, tok, S + i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4, 8):
+        tok, dc = serve_step(params, dc, tok, S + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 4 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(8, 12):
+            tok, dc = serve_step(params, dc, tok, S + i)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_device:
+        raise AssertionError("the profiler saw no device op in the decode window")
+    busy_ms = union_ms(on_device) / 4
+    floor_ms, floor_by = bound_ms(decode_floor_bytes(cfg, params, dc, S + 10, B),
+                                  2.0 * B * sum(t.numel() for t in params.values()))
+    del dc
+    by_name = {}
+    for e in on_device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 4e3
+    print(f"  decode step (untraced) {step_ms:.2f} ms; device busy {busy_ms:.3f} ms/step "
+          f"({len(on_device) / 4:.0f} device ops/step); idle share {1 - busy_ms / step_ms:.3f}; "
+          f"decode floor {floor_ms:.3f} ms ({floor_by}) — on {card}")
+    for name, ms in sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]:
+        print(f"    {ms:8.4f} ms/step  {name[:90]}")
+
+    # The family's invariant: decode (the one-token recurrence) is the
+    # prefill's function (the chunked scan). Logits of the forward over
+    # prompt + emitted tokens against the decode's own, teacher-forced on
+    # the run's tokens: in bf16 (the served run) and in fp32 (the same
+    # weights). Random full-width weights amplify bf16 rounding to O(1)
+    # logits over depth (ROADMAP.md §3), so the invariant is held in fp32
+    # (SCAN_TOL) and the served tokens to the bf16 noise measured here.
+    seq = torch.cat([prompt, out[:, :-1]], dim=1)
+
+    def both_ways(p, fe):
+        fwd = spec.forward(p, seq, fe)[0][:, S - 1:].float()
+        first, cache = spec.prefill(p, prompt, fe)
+        dc, rows = into_decode_cache(cache), [first]
+        del cache
+        for i in range(n - 1):
+            lg, dc = spec.decode_step(p, dc, out[:, i:i + 1], S + i)
+            rows.append(lg)
+        return fwd, torch.stack(rows, dim=1).float()
+
+    fwd16, dec16 = both_ways(params, frontend)
+    if not torch.equal(torch.argmax(dec16, dim=-1).to(torch.int32), out):
+        raise AssertionError("the teacher-forced bf16 decode does not reproduce the served tokens")
+    params32 = {k: t.float() for k, t in params.items()}
+    del params
+    fwd32, dec32 = both_ways(params32, None if frontend is None else frontend.float())
+    del params32
+    if not all(torch.isfinite(t).all() for t in (fwd16, dec16, fwd32, dec32)):
+        raise AssertionError("non-finite logits")
+    scan_err = float((dec32 - fwd32).abs().max())
+    noise_fwd, noise_dec = float((fwd16 - fwd32).abs().max()), float((dec16 - dec32).abs().max())
+    gaps = fwd16.max(-1).values - fwd16.gather(-1, out.long()[..., None])[..., 0]
+    worst, bound = float(gaps.max()), max(NEAR_TIE, 2 * (noise_fwd + noise_dec))
+    print(f"  fp32: decode vs teacher-forced forward, max |logit diff| {scan_err:.3g} (tol {SCAN_TOL}); "
+          f"bf16 noise (max |bf16 - fp32| logits): forward {noise_fwd:.4f}, decode {noise_dec:.4f}")
+    print(f"  near-tie check: worst gap of a served token to the bf16 teacher-forced max logit {worst:.4f} "
+          f"(tol max({NEAR_TIE}, 2 x noise) = {bound:.4f}); {int((gaps == 0).sum())}/{gaps.numel()} tokens "
+          f"at the max")
+    if scan_err > SCAN_TOL:
+        raise AssertionError(f"fp32 decode is {scan_err} from the forward: the scan is not the recurrence")
+    if worst > bound:
+        raise AssertionError(f"a served token is {worst} below the teacher-forced max logit")
+    return counts
 
 
 @contextlib.contextmanager
@@ -714,6 +949,7 @@ def main() -> int:
     with phase("kernels"):
         rows = check_kernels(full)
         rows_g1 = check_kernels(moe_full)
+        flash_family = check_flash_family_shapes()
     rng = np.random.default_rng(SEED)
     prompts = {rid: [int(t) for t in rng.integers(1, full.vocab - 1, size=n)] for rid, n in enumerate(PROMPT_LENS)}
     with phase("serving"):
@@ -721,6 +957,12 @@ def main() -> int:
     torch.cuda.empty_cache()  # qwen3's weights and pools are gone with serve()'s frame
     with phase("serving, MoE"):
         counts_moe, routes_moe = serve(moe_full, moe_reduced, card, prompts)
+    torch.cuda.empty_cache()
+    counts_family = {}
+    with phase("serving, other families"):
+        for arch in FAMILY_ARCHS:
+            counts_family[arch] = serve_family(get_config(arch), card)
+            torch.cuda.empty_cache()
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
             "library_device_ms")
@@ -739,9 +981,12 @@ def main() -> int:
         g1 = rows_g1[name]
         extra = r.get("extra", []) + [dict(g1, shape=f"{moe_full.name}, group size 1: {g1.get('shape', 'with the write log')}")]
         extra += [dict(x, shape=f"{moe_full.name}, group size 1: {x['shape']}") for x in g1.get("extra", [])]
+        if name == "flash_attention":
+            extra += flash_family
         entry["extra"] = [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "bound_ms": x["bound"][0],
                            "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in extra]
-        entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name]}
+        entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name],
+                                     **{arch: c[name] for arch, c in counts_family.items()}}
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
     kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS

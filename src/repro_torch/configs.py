@@ -41,8 +41,15 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture. Families: dense, moe, ssm, hybrid, encdec, vlm
-    (the port has dense, moe and vlm so far)."""
+    """One architecture. Families:
+
+    dense  — decoder-only transformer (GQA)
+    moe    — decoder-only transformer with MoE FFN
+    ssm    — attention-free (RWKV6)
+    hybrid — Mamba2 backbone + shared attention block (Zamba2)
+    encdec — encoder-decoder transformer (Whisper), audio frontend stubbed
+    vlm    — decoder-only backbone + vision patch frontend stubbed (LLaVA)
+    """
 
     name: str
     family: str
@@ -107,11 +114,13 @@ class ModelConfig:
                 ffn = 3 * d * ff
             n += L * (attn + ffn + 2 * d)
             if self.family == "encdec":
+                # encoder blocks + decoder cross-attention
                 n += self.enc_layers * (attn + 3 * d * ff + 2 * d)
                 n += L * (attn + d)  # cross attn + its norm
         elif self.family == "ssm":
             s = self.ssm
             inner = s.heads * s.head_dim
+            # rwkv6: time-mix (r,k,v,g,o + decay/first) + channel-mix
             n += L * (5 * d * inner + 2 * inner + 3 * d * ff // 2 + 2 * d)
         elif self.family == "hybrid":
             s = self.ssm
@@ -137,7 +146,7 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# registry (the dense, moe and vlm archs; more come with later families)
+# registry (every arch of the JAX package)
 # ---------------------------------------------------------------------------
 
 
@@ -387,6 +396,117 @@ def llava_next_34b_reduced() -> ModelConfig:
     )
 
 
+def whisper_base() -> ModelConfig:
+    """whisper-base [audio]: 6L d_model=512 8H (kv=8) d_ff=2048 vocab=51865.
+    Encoder-decoder; the conv audio frontend is a stub: frame embeddings of
+    length seq_len // 4 are an input."""
+    return ModelConfig(
+        name="whisper-base",
+        family="encdec",
+        n_layers=6,  # decoder depth
+        enc_layers=6,
+        d_model=512,
+        n_heads=8,
+        n_kv_heads=8,
+        d_ff=2048,
+        vocab=51_865,
+        frontend="audio",
+        rope_theta=10_000.0,
+        sub_quadratic=False,
+        microbatch={"train_4k": 16},
+    )
+
+
+def whisper_base_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="whisper-base-reduced",
+        family="encdec",
+        n_layers=2,
+        enc_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=4,
+        d_ff=128,
+        vocab=128,
+        frontend="audio",
+        microbatch={"train_4k": 2},
+    )
+
+
+def rwkv6_3b() -> ModelConfig:
+    """rwkv6-3b [ssm]: 32L d_model=2560 (attention-free) d_ff=8960
+    vocab=65536 — Finch: data-dependent decay linear recurrence."""
+    return ModelConfig(
+        name="rwkv6-3b",
+        family="ssm",
+        n_layers=32,
+        d_model=2560,
+        n_heads=40,  # head_dim 64
+        n_kv_heads=40,
+        d_ff=8960,
+        vocab=65_536,
+        ssm=SSMConfig(kind="rwkv6", heads=40, head_dim=64, state_dim=64, chunk=64),
+        sub_quadratic=True,
+        microbatch={"train_4k": 4},
+    )
+
+
+def rwkv6_3b_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="rwkv6-3b-reduced",
+        family="ssm",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=4,
+        d_ff=128,
+        vocab=128,
+        ssm=SSMConfig(kind="rwkv6", heads=4, head_dim=16, state_dim=16, chunk=32),
+        sub_quadratic=True,
+        microbatch={"train_4k": 2},
+    )
+
+
+def zamba2_7b() -> ModelConfig:
+    """zamba2-7b [hybrid]: 81L d_model=3584 32H (kv=32, head_dim 112)
+    d_ff=14336 vocab=32000, ssm_state=64 — Mamba2 backbone + one shared
+    attention block applied every 6 layers (fully shared weights)."""
+    return ModelConfig(
+        name="zamba2-7b",
+        family="hybrid",
+        n_layers=81,
+        d_model=3584,
+        n_heads=32,
+        n_kv_heads=32,
+        head_dim=112,
+        d_ff=14_336,
+        vocab=32_000,
+        ssm=SSMConfig(kind="mamba2", heads=56, head_dim=128, state_dim=64, chunk=128),
+        shared_attn_every=6,
+        rope_theta=10_000.0,
+        sub_quadratic=True,
+        microbatch={"train_4k": 2},
+    )
+
+
+def zamba2_7b_reduced() -> ModelConfig:
+    return ModelConfig(
+        name="zamba2-7b-reduced",
+        family="hybrid",
+        n_layers=4,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=4,
+        head_dim=16,
+        d_ff=128,
+        vocab=128,
+        ssm=SSMConfig(kind="mamba2", heads=4, head_dim=32, state_dim=16, chunk=32),
+        shared_attn_every=2,
+        sub_quadratic=True,
+        microbatch={"train_4k": 2},
+    )
+
+
 _REGISTRY: Dict[str, Tuple] = {
     "qwen2.5-32b": (qwen25_32b, qwen25_32b_reduced),
     "mistral-large-123b": (mistral_large_123b, mistral_large_123b_reduced),
@@ -395,6 +515,9 @@ _REGISTRY: Dict[str, Tuple] = {
     "olmoe-1b-7b": (olmoe_1b_7b, olmoe_1b_7b_reduced),
     "llama4-scout-17b-a16e": (llama4_scout, llama4_scout_reduced),
     "llava-next-34b": (llava_next_34b, llava_next_34b_reduced),
+    "whisper-base": (whisper_base, whisper_base_reduced),
+    "rwkv6-3b": (rwkv6_3b, rwkv6_3b_reduced),
+    "zamba2-7b": (zamba2_7b, zamba2_7b_reduced),
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_REGISTRY)

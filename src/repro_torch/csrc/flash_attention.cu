@@ -261,7 +261,7 @@ __global__ void __launch_bounds__(THREADS)
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  __nv_bfloat16* __restrict__ out, int S, int S_kv, int H, int KV,
-                                 int causal, float scale_log2) {
+                                 int hd, int causal, float scale_log2) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -440,37 +440,45 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = 0; i < HD / 2; ++i) o[i] = fmaf((i & 2) ? b1 : b0, x[i * 128], o[i]);
   }
   const float inv0 = 1.f / fmaxf(L0, 1e-30f), inv1 = 1.f / fmaxf(L1, 1e-30f);
+  // columns hd .. HD - 1 (hd < HD: a head narrower than the instantiation)
+  // hold zeros from the zero-filled K/V columns; only the hd are stored
 #pragma unroll
   for (int jj = 0; jj < HD / 8; ++jj) {
     const int col = jj * 8 + (lane & 3) * 2;
+    if (col >= hd) continue;
     if (rA < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * S + rA) * H + h) * HD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * S + rA) * H + h) * hd + col) =
           __floats2bfloat162_rn(o[4 * jj] * inv0, o[4 * jj + 1] * inv0);
     if (rB < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * S + rB) * H + h) * HD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * S + rB) * H + h) * hd + col) =
           __floats2bfloat162_rn(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
   }
 }
 
+// Head dims below HD (hd = 112 on Cfg<128>): the tensor maps' inner dimension
+// is the logical hd, so TMA zero-fills columns hd .. HD - 1 of every tile
+// (the row stride hd * 2 bytes must be a multiple of 16); those columns add
+// 0 to Q.K^T and give 0 in O. The scale is 1 / sqrt(hd).
 template <int HD>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int S_kv,
-                  int H, int KV, int causal, cudaStream_t stream) {
+                  int H, int KV, int hd, int causal, cudaStream_t stream) {
   using C = Cfg<HD>;
   const CUtensorMapSwizzle swz = C::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                               : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv;
-  if (!encode_bf16_4d(&tq, q, HD, H, S, B, C::E, BQ, swz) ||
-      !encode_bf16_4d(&tk, k, HD, KV, S_kv, B, C::E, BK, swz) ||
-      !encode_bf16_4d(&tv, v, HD, KV, S_kv, B, C::E, BK, swz))
+  if (hd > HD || hd % 8 != 0 ||
+      !encode_bf16_4d(&tq, q, hd, H, S, B, C::E, BQ, swz) ||
+      !encode_bf16_4d(&tk, k, hd, KV, S_kv, B, C::E, BK, swz) ||
+      !encode_bf16_4d(&tv, v, hd, KV, S_kv, B, C::E, BK, swz))
     return static_cast<int>(cudaErrorInvalidValue);
   static int granted = 0;
   cudaError_t err = ensure_smem(flash_attention_wgmma_kernel<HD>, C::SMEM, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(H, (S + BQ - 1) / BQ, B);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
   flash_attention_wgmma_kernel<HD><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, S_kv, H, KV, causal, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, S_kv, H, KV, hd, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 }  // namespace tc
@@ -495,17 +503,19 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 on the tensor cores; hd in {16, 32, 64, 128}.
+// bf16 on the tensor cores; hd in {16, 32, 64, 112, 128} (112: zamba2-7b's
+// shared attention, on the 128 instantiation).
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                           int B, int S, int S_kv, int H, int KV, int hd,
                                           int causal, void* stream) {
   if (S <= 0 || S_kv <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return tc::launch<16>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
-    case 32: return tc::launch<32>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
-    case 64: return tc::launch<64>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
-    case 128: return tc::launch<128>(q, k, v, out, B, S, S_kv, H, KV, causal, s);
+    case 16: return tc::launch<16>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
+    case 32: return tc::launch<32>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
+    case 64: return tc::launch<64>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
+    case 112:
+    case 128: return tc::launch<128>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,16 +1,19 @@
 """Prefill attention: wrapper of ``csrc/flash_attention.cu``.
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``
-(which JAX's dense prefill never calls; the port wires it into
-``models/dense.py::_block``). Bound on the card: bytes at prompt lengths
-below ~900 at the bf16 tensor rate. Two routes, chosen by dtype and never
+(which JAX's prefill never calls; the port wires it in where JAX calls
+``chunked_attention``: ``models/dense.py::_block``, the encoder-decoder's
+three attentions in ``models/encdec.py`` — the cross-attention non-causal
+with S_q != S_kv — and zamba2's shared block in ``models/mamba2.py``).
+Bound on the card: bytes at prompt lengths below ~900 at the bf16 tensor
+rate. Two routes, chosen by dtype and never
 as a fallback:
 
 - ``tensor_core`` (bf16): TMA brings Q and a 6-stage ring of 64-key K/V
   tiles into shared memory; per 64-query tile and head, three warpgroups
   take the key tiles in turn and run S = Q.K^T and O += P.V on wgmma, with
   the online softmax in registers, and merge at the end. hd must be 16, 32,
-  64 or 128.
+  64, 112 or 128 (112 runs the 128 instantiation on zero-filled columns).
 - ``cuda_core`` (fp32): 32 x 32 tiles in fp32 shared memory, fp32 register
   blocks; keeps the 3e-5 tolerance that TF32 or bf16 rounding would not.
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-TC_HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (16, 32, 64, 112, 128)
 _ARGS = [_build.P] * 4 + [_build.I] * 7 + [_build.P]
 
 

@@ -7,6 +7,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --full ...  # MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu ...     # plain versions
 
+The GQA decoder families only (dense, moe, vlm), as in JAX: the
+encoder-decoder, RWKV6 and Mamba2/Zamba2 families are served through
+``repro_torch.launch.steps``.
+
 Reports the paper's metrics for the serving analogue: parks (coordinated
 context switches), promoted/evicted pages (adaptive migration), compactions
 and the coalescing ratio (write-log), plus tokens/s. Weights are random,
@@ -161,6 +165,11 @@ def main() -> None:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise SystemExit(
+            "tiered serving demo targets GQA decoder families; "
+            f"{cfg.family} decode runs via repro_torch.launch.steps.build_serve_step"
+        )
     spec = ModelSpec(cfg)
     params = spec.init(torch.Generator(device=device).manual_seed(args.seed), device=device)
     rng = np.random.default_rng(args.seed)

@@ -1,10 +1,10 @@
-"""Model API facade (port of ``repro/models/api.py``) for the dense, moe
-and vlm families.
+"""Model API facade (port of ``repro/models/api.py``): one front over the
+family modules.
 
-``ModelSpec(cfg)`` provides ``schema`` / ``init`` / ``param_count`` and
-``forward`` / ``prefill`` / ``decode_step`` / ``init_cache``. Other families
-(encdec, ssm, hybrid) raise ``NotImplementedError`` until their slice of the
-port lands; so does training's ``loss``, not ported yet.
+``ModelSpec(cfg)`` provides ``schema`` / ``init`` / ``param_count``,
+``forward`` / ``prefill`` / ``decode_step`` / ``init_cache`` and
+``smoke_batch``. Training's ``loss`` is not ported yet (ROADMAP.md §1 item
+8). The step builders live in ``repro_torch.launch.steps``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
-from repro_torch.models import common, dense
+from repro_torch.models import common, dense, encdec, mamba2, rwkv6
+
+_FAMILY = {
+    "dense": dense,
+    "moe": dense,
+    "vlm": dense,
+    "encdec": encdec,
+    "ssm": rwkv6,
+    "hybrid": mamba2,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,12 +33,9 @@ class ModelSpec:
 
     @property
     def mod(self):
-        if self.cfg.family not in dense.FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: family {self.cfg.family!r} is not ported yet "
-                "(ROADMAP.md §1 item 7)"
-            )
-        return dense
+        if self.cfg.family not in _FAMILY:
+            raise ValueError(f"{self.cfg.name}: unknown family {self.cfg.family!r}; known: {sorted(_FAMILY)}")
+        return _FAMILY[self.cfg.family]
 
     # ---- parameters ----
     def schema(self) -> Dict[str, Any]:
@@ -47,15 +53,40 @@ class ModelSpec:
 
     def prefill(self, params, tokens, frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Full-context forward collecting decode state. Returns
-        (last_logits (B, V), cache with k/v (L, B, Sf + S, KV, hd)); the
-        cache's ``length`` is the token count S, as in JAX."""
-        logits, _, (k, v) = self.forward(
-            params, tokens, frontend, collect_kv=True, unembed_last_only=True
-        )
-        return logits[:, -1], {"k": k, "v": v, "length": tokens.shape[1]}
+        (last_logits (B, V), cache); the cache's ``length`` is the token
+        count S, as in JAX."""
+        logits, _, collected = self.forward(params, tokens, frontend, collect_kv=True, unembed_last_only=True)
+        return logits[:, -1], self._assemble_cache(collected, tokens.shape[1])
+
+    def _assemble_cache(self, collected, S: int) -> Dict[str, Any]:
+        """The family's collected state under its cache names (JAX's)."""
+        fam = self.cfg.family
+        if fam in ("dense", "moe", "vlm"):
+            names = ("k", "v")
+        elif fam == "encdec":
+            names = ("k", "v", "ck", "cv")
+        elif fam == "ssm":
+            names = ("tm_prev", "cm_prev", "wkv")
+        else:  # hybrid; the attention caches only with a shared block
+            names = ("conv", "ssm", "attn_k", "attn_v")[:len(collected)]
+        return {**dict(zip(names, collected)), "length": S}
 
     def decode_step(self, params, cache, tokens, pos: int):
         return self.mod.decode_step(self.cfg, params, cache, tokens, pos)
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return self.mod.init_cache(self.cfg, batch, max_len, device=resolve_device(device))
+
+    # ---- smoke-test helper ----
+    def smoke_batch(self, generator: torch.Generator, batch: int = 2, seq: int = 32, device="cuda"):
+        """Random tokens (B, S) int32 and, for a vlm, patch embeddings
+        (B, n_frontend_tokens, d), for an encdec frame embeddings
+        (B, max(S // 4, 1), d), both bf16."""
+        cfg, dev = self.cfg, resolve_device(device)
+        out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=generator, device=dev,
+                                       dtype=torch.int32)}
+        n_front = {"vlm": cfg.n_frontend_tokens, "encdec": max(seq // 4, 1)}.get(cfg.family)
+        if n_front is not None:
+            out["frontend"] = torch.randn((batch, n_front, cfg.d_model), generator=generator,
+                                          device=dev).to(torch.bfloat16)
+        return out

@@ -78,10 +78,13 @@ def init_params(generator: torch.Generator, schema: Schema, device) -> Params:
     return {name: _leaf_init(generator, leaf, device) for name, leaf in flat_leaves(schema)}
 
 
-def layer_params(params: Params, layer: int) -> Params:
-    """Views of layer ``layer`` of every stacked ``blocks.*`` parameter."""
-    return {
-        name[len("blocks."):]: t[layer]
-        for name, t in params.items()
-        if name.startswith("blocks.")
-    }
+def sub_params(params: Params, group: str) -> Params:
+    """The parameters under ``<group>.*``, keyed without the prefix."""
+    prefix = group + "."
+    return {name[len(prefix):]: t for name, t in params.items() if name.startswith(prefix)}
+
+
+def layer_params(params: Params, layer: int, stack: str = "blocks") -> Params:
+    """Views of layer ``layer`` of every stacked ``<stack>.*`` parameter
+    (``blocks``; the encoder-decoder's ``enc`` and ``dec``; ``mamba``)."""
+    return {name: t[layer] for name, t in sub_params(params, stack).items()}

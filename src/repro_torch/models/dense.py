@@ -22,18 +22,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import Leaf, Params, layer_params, stacked
 from repro_torch.models.layers import AttnParams, decode_attention, moe_ffn, project_qkv, rmsnorm, swiglu
 
-FAMILIES = ("dense", "moe", "vlm")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md §1 item 7)"
-        )
-
-
 def schema(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_family(cfg)
     d, L = cfg.d_model, cfg.n_layers
     hd = cfg.resolved_head_dim
     H, KV, Ff, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab
@@ -149,7 +138,6 @@ def forward(
     cache; aux_loss is then 0, as in JAX (the sum over layers otherwise).
     ``unembed_last_only`` skips the (B, S, V) logit tensor (prefill path).
     """
-    _check_family(cfg)
     x = embed_inputs(cfg, params, tokens, frontend)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -196,7 +184,6 @@ def decode_step(
 
     The cache's k/v are updated IN PLACE at ``pos`` (JAX returns a new
     cache; writing the one new row saves copying the whole cache)."""
-    _check_family(cfg)
     x = params["embed"][tokens]  # (B, 1, d)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)

@@ -1,0 +1,192 @@
+"""Encoder-decoder transformer, the whisper-base backbone (port of
+``repro/models/encdec.py``).
+
+The conv audio frontend is a stub, as in JAX: the encoder takes frame
+embeddings (B, S_enc, d) as its input. Positions are sinusoidal in both
+stacks (no RoPE). Prefill attention — the encoder's, the decoder's causal
+self-attention and its cross-attention to the encoder output — runs through
+the flash-attention kernel where JAX calls ``chunked_attention``; decode
+attends its dense self and cross caches with ``layers.decode_attention``,
+as JAX does.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import Leaf, Params, layer_params, stacked
+from repro_torch.models.layers import AttnParams, decode_attention, gelu_mlp, project_qkv, rmsnorm
+
+
+def _attn_leaves(cfg: ModelConfig, L: int, prefix: str) -> Dict[str, Leaf]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return {
+        f"{prefix}norm": stacked(L, (d,), (None,), init="ones"),
+        f"{prefix}wq": stacked(L, (d, H * hd), ("embed", "heads")),
+        f"{prefix}wk": stacked(L, (d, KV * hd), ("embed", "kv")),
+        f"{prefix}wv": stacked(L, (d, KV * hd), ("embed", "kv")),
+        f"{prefix}wo": stacked(L, (H * hd, d), ("heads", "embed")),
+    }
+
+
+def schema(cfg: ModelConfig) -> Dict[str, Any]:
+    d, Ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    L, Le = cfg.n_layers, cfg.enc_layers
+    enc = {
+        **_attn_leaves(cfg, Le, "attn_"),
+        "mlp_norm": stacked(Le, (d,), (None,), init="ones"),
+        "w_in": stacked(Le, (d, Ff), ("embed", "ffn")),
+        "w_out": stacked(Le, (Ff, d), ("ffn", "embed")),
+    }
+    dec = {
+        **_attn_leaves(cfg, L, "attn_"),
+        **_attn_leaves(cfg, L, "cross_"),
+        "mlp_norm": stacked(L, (d,), (None,), init="ones"),
+        "w_in": stacked(L, (d, Ff), ("embed", "ffn")),
+        "w_out": stacked(L, (Ff, d), ("ffn", "embed")),
+    }
+    return {
+        "embed": Leaf((V, d), ("vocab", "embed"), scale=0.02),
+        "frontend_proj": Leaf((d, d), ("embed", None), scale=0.02),
+        "enc": enc,
+        "dec": dec,
+        "enc_norm": Leaf((d,), (None,), init="ones"),
+        "final_norm": Leaf((d,), (None,), init="ones"),
+        "lm_head": Leaf((d, V), ("embed", "vocab"), scale=0.02),
+    }
+
+
+def sinusoid(S: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
+    """(S, d) fp32: [sin, cos] of ``pos / 10000 ** (2 i / d)`` at positions
+    offset .. offset + S - 1, in fp32 as JAX computes it."""
+    pos = (offset + torch.arange(S, device=device))[:, None].float()
+    i = torch.arange(d // 2, device=device)[None, :].float()
+    ang = pos / (10_000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoid_at(pos: int, d: int, device=None) -> torch.Tensor:
+    """The sinusoid at one position -> (1, 1, d)."""
+    return sinusoid(1, d, offset=pos, device=device)[None]
+
+
+def _aview(p: Params, prefix: str) -> AttnParams:
+    return AttnParams(wq=p[f"{prefix}wq"], wk=p[f"{prefix}wk"], wv=p[f"{prefix}wv"], wo=p[f"{prefix}wo"])
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    return o.reshape(*o.shape[:2], -1)
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_enc, d) stub frontend embeddings -> (B, S_enc, d). The
+    frames are cast to the weights' dtype (bf16, as JAX casts them)."""
+    x = frames.to(params["frontend_proj"].dtype) @ params["frontend_proj"]
+    x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(x.dtype)
+    for layer in range(cfg.enc_layers):
+        p = layer_params(params, layer, "enc")
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
+        x = x + _merge_heads(flash_attention(q, k, v, causal=False)) @ p["attn_wo"]
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + gelu_mlp(h, p["w_in"], p["w_out"])
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
+    """Cross-attention K/V of one decoder layer: plain matmuls of the
+    encoder output (no bias, no RoPE) -> (B, S_enc, KV, hd) each."""
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return (enc_out @ p["cross_wk"]).reshape(shape), (enc_out @ p["cross_wv"]).reshape(shape)
+
+
+def _dec_block(cfg: ModelConfig, p: Params, x: torch.Tensor, enc_out: torch.Tensor):
+    """One decoder layer over the whole sequence. Returns (x, (k, v, ck, cv))."""
+    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
+    x = x + _merge_heads(flash_attention(q, k, v, causal=True)) @ p["attn_wo"]
+    h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+    cq = (h @ p["cross_wq"]).reshape(*h.shape[:2], cfg.n_heads, cfg.resolved_head_dim)
+    ck, cv = _cross_kv(cfg, p, enc_out)
+    x = x + _merge_heads(flash_attention(cq, ck, cv, causal=False)) @ p["cross_wo"]
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + gelu_mlp(h, p["w_in"], p["w_out"]), (k, v, ck, cv)
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # (B, S) decoder tokens
+    frontend: torch.Tensor,  # (B, S_enc, d) frame embeddings
+    *,
+    collect_kv: bool = False,
+    unembed_last_only: bool = False,
+):
+    """Returns (logits, 0.0, (k, v, ck, cv) each stacked over layers, or
+    None): k/v (L, B, S, KV, hd), ck/cv (L, B, S_enc, KV, hd)."""
+    enc_out = encode(cfg, params, frontend)
+    x = params["embed"][tokens]
+    x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(x.dtype)
+    kvs = []
+    for layer in range(cfg.n_layers):
+        x, kv = _dec_block(cfg, layer_params(params, layer, "dec"), x, enc_out)
+        if collect_kv:
+            kvs.append(kv)
+    if unembed_last_only:
+        x = x[:, -1:]
+    logits = rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    collected = tuple(torch.stack(t) for t in zip(*kvs)) if collect_kv else None
+    return logits, 0.0, collected
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Self K/V of ``max_len`` positions; cross K/V of ``max(max_len // 4,
+    1)`` encoder rows (JAX's ``cache_specs``). Decode attends every cross
+    row: a shorter prefill's rows are padded with zeros, which take softmax
+    weight, as in JAX (ROADMAP.md §3)."""
+    hd, L, KV = cfg.resolved_head_dim, cfg.n_layers, cfg.n_kv_heads
+    Se = max(max_len // 4, 1)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.bfloat16, device=device)  # noqa: E731
+    return {
+        "k": zeros(L, batch, max_len, KV, hd),
+        "v": zeros(L, batch, max_len, KV, hd),
+        "ck": zeros(L, batch, Se, KV, hd),
+        "cv": zeros(L, batch, Se, KV, hd),
+        "length": 0,
+    }
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any], tokens: torch.Tensor, pos: int):
+    """One decoder step against the cached self and cross K/V. Returns
+    (logits (B, V), cache); the self cache is written IN PLACE at ``pos``."""
+    x = params["embed"][tokens]  # (B, 1, d)
+    B = x.shape[0]
+    x = x + sinusoid_at(pos, x.shape[-1], device=x.device).to(x.dtype)
+    for layer in range(cfg.n_layers):
+        p = layer_params(params, layer, "dec")
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
+        cache["k"][layer, :, pos] = k[:, 0]
+        cache["v"][layer, :, pos] = v[:, 0]
+        o = decode_attention(q, cache["k"][layer], cache["v"][layer], pos + 1)
+        x = x + o.reshape(B, 1, -1) @ p["attn_wo"]
+        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        cq = (h @ p["cross_wq"]).reshape(B, 1, cfg.n_heads, cfg.resolved_head_dim)
+        ck, cv = cache["ck"][layer], cache["cv"][layer]
+        co = decode_attention(cq, ck, cv, ck.shape[1])
+        x = x + co.reshape(B, 1, -1) @ p["cross_wo"]
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + gelu_mlp(h, p["w_in"], p["w_out"])
+    logits = (rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"])[:, 0]
+    cache["length"] = pos + 1
+    return logits, cache

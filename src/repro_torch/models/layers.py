@@ -49,6 +49,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: to
     return h @ w_down
 
 
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    """GELU MLP without biases (the JAX callers pass none). ``jax.nn.gelu``
+    defaults to the tanh approximation, so this takes it too (the erf form
+    differs by ~1e-3)."""
+    h = F.gelu((x @ w_in).float(), approximate="tanh").to(x.dtype)
+    return h @ w_out
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnParams:
     """View over one layer's attention weights (already layer-sliced)."""
@@ -65,18 +73,21 @@ class AttnParams:
 
 
 def project_qkv(
-    cfg: ModelConfig, p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
+    cfg: ModelConfig, p: AttnParams, x: torch.Tensor, positions: Optional[torch.Tensor],
+    *, rope: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> q: (B, S, H, hd), k/v: (B, S, KV, hd)."""
-    return qkv_epilogue(cfg, p, x @ p.wq, x @ p.wk, x @ p.wv, positions)
+    """x: (B, S, d) -> q: (B, S, H, hd), k/v: (B, S, KV, hd). RoPE only
+    with ``rope`` and ``positions`` (the encoder-decoder has neither)."""
+    return qkv_epilogue(cfg, p, x @ p.wq, x @ p.wk, x @ p.wv, positions if rope else None)
 
 
 def qkv_epilogue(
     cfg: ModelConfig, p: AttnParams, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    positions: torch.Tensor,
+    positions: Optional[torch.Tensor],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What ``project_qkv`` does after the three matmuls: bias, qk-norm and
-    RoPE. q: (B, S, H*hd), k/v: (B, S, KV*hd) -> (B, S, heads, hd) each."""
+    RoPE (none where ``positions`` is None). q: (B, S, H*hd), k/v:
+    (B, S, KV*hd) -> (B, S, heads, hd) each."""
     B, S, _ = q.shape
     hd = cfg.resolved_head_dim
     if p.bq is not None:
@@ -87,8 +98,9 @@ def qkv_epilogue(
     if p.q_norm is not None:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

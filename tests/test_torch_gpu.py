@@ -175,6 +175,48 @@ def test_flash_attention_tensor_cores(cuda, hd, g, S, causal):
     _close(got, flash_attention_ref(q, k, v, causal=causal), 3e-2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [13, 381])
+@pytest.mark.parametrize("g", [1, 2])
+def test_flash_attention_hd112(cuda, g, S, causal):
+    """Head dim 112 (zamba2-7b's shared attention) on the tensor-core route:
+    the 128 instantiation over zero-filled columns, 1/sqrt(112) scale."""
+    KV = 4
+    rng = np.random.default_rng(g * 1000 + S)
+    q = _rand(rng, (2, S, g * KV, 112), "bfloat16", cuda)
+    k, v = _rand(rng, (2, S, KV, 112), "bfloat16", cuda), _rand(rng, (2, S, KV, 112), "bfloat16", cuda)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert route_counts() == {"tensor_core": 1, "cuda_core": 0}
+    _close(got, flash_attention_ref(q, k, v, causal=causal), 3e-2)
+
+
+def test_flash_attention_hd112_full_width(cuda):
+    """zamba2-7b's prefill shape: (4, 381, 32, 112), causal."""
+    rng = np.random.default_rng(112)
+    q, k, v = (_rand(rng, (4, 381, 32, 112), "bfloat16", cuda) for _ in range(3))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    assert route_counts() == {"tensor_core": 1, "cuda_core": 0}
+    _close(got, flash_attention_ref(q, k, v, causal=True), 3e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 64, 112])
+@pytest.mark.parametrize("S,S_kv", [(381, 103), (35, 9), (103, 103), (9, 70)])
+def test_flash_attention_non_causal_cross(cuda, S, S_kv, hd, dtype):
+    """Non-causal with S_q != S_kv (whisper's cross-attention: 381 x 103 at
+    full width) and S_q == S_kv (its encoder), on both routes."""
+    rng = np.random.default_rng(S * 7 + S_kv + hd)
+    q = _rand(rng, (2, S, 8, hd), dtype, cuda)
+    k, v = _rand(rng, (2, S_kv, 8, hd), dtype, cuda), _rand(rng, (2, S_kv, 8, hd), dtype, cuda)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    route = "tensor_core" if dtype == "bfloat16" else "cuda_core"
+    assert route_counts()[route] == 1
+    _close(got, flash_attention_ref(q, k, v, causal=False), 3e-2 if dtype == "bfloat16" else 3e-5)
+
+
 def test_flash_attention_fp32_cuda_cores(cuda):
     rng = np.random.default_rng(3)
     q = _rand(rng, (1, 381, 16, 128), "float32", cuda)
@@ -441,3 +483,46 @@ def test_moe_engine_on_the_card(cuda, arch, monkeypatch):
         live = batches[i // layers_][1] >= 0
         below = logits.gather(-1, own[:, -1:]) - logits.gather(-1, ran)
         assert float(below.amax(-1)[live].max()) <= 1 / 16, (i, below)
+
+
+# prefill flash launches of each reduced family: whisper's encoder, decoder
+# self- and cross-attention per layer; zamba2's shared block per invocation
+FAMILY_FLASH = {"whisper-base": 6, "rwkv6-3b": 0, "zamba2-7b": 2}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_FLASH))
+def test_family_on_the_card(cuda, arch):
+    """Reduced whisper-base, rwkv6-3b and zamba2-7b: prefill and three decode
+    steps on the card against the same weights and tokens on the CPU. Logits
+    within 3e-2 (cuBLAS sums in another order than the CPU's GEMMs, and the
+    flash kernel rounds the softmax weights to bf16 before P.V: noise on
+    logits of ~0.1-1); every flash call on the tensor-core route."""
+    from repro_torch.launch.steps import build_prefill_step, decode_cache
+
+    spec = ModelSpec(get_reduced(arch))
+    params = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    B, S, n = 2, 37, 3
+    max_len = S + n + 3
+    batch = spec.smoke_batch(torch.Generator().manual_seed(1), batch=B, seq=4 * (max_len // 4), device="cpu")
+    prompt = batch["tokens"][:, :S]
+    feed = torch.randint(0, spec.cfg.vocab, (n, B, 1), generator=torch.Generator().manual_seed(2), dtype=torch.int32)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: t.to(dev) for k, t in params.items()}
+        fe = batch.get("frontend")
+        fe = None if fe is None else fe.to(dev)
+        reset_launch_counts()
+        tok, cache = build_prefill_step(spec)(p, prompt.to(dev), fe)
+        if dev == "cuda":
+            assert launch_counts()["flash_attention"] == FAMILY_FLASH[arch]
+            assert route_counts() == {"tensor_core": FAMILY_FLASH[arch], "cuda_core": 0}
+        first, _ = spec.prefill(p, prompt.to(dev), fe)
+        dc = decode_cache(spec, cache, B, max_len, device=dev)
+        out = [first]
+        for i in range(n):
+            lg, dc = spec.decode_step(p, dc, feed[i].to(dev), S + i)
+            out.append(lg)
+        assert dc["length"] == S + n
+        logits[dev] = torch.stack(out).float().cpu()
+    assert torch.isfinite(logits["cuda"]).all()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=3e-2, rtol=0)

@@ -1,4 +1,5 @@
-"""The port stands alone: importing every module of repro_torch, and
+"""The port stands alone: importing every module of repro_torch (the
+encoder-decoder, RWKV6, Mamba2 and step-builder modules among them), and
 chip_smoke.py, pulls in neither JAX nor the JAX package, and builds nothing."""
 import os
 import subprocess
@@ -15,6 +16,9 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+new = ["repro_torch.models.encdec", "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
+       "repro_torch.launch.steps"]
+assert all(name in names for name in new), names
 print(len(names), bad)
 """
 

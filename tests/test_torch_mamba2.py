@@ -1,0 +1,200 @@
+"""Port vs JAX: the Mamba2/Zamba2 family (``repro_torch/models/mamba2.py``
+against ``repro/models/mamba2.py``) on the CPU.
+
+Three configs, each the same on both sides: reduced zamba2-7b (4 layers, a
+shared attention block after every 2: no tail), with ``n_layers=5`` (a tail
+of one Mamba layer, as full width's 13 x 6 + 3), and with
+``shared_attn_every=0`` (Mamba2 alone). The chunked SSD scan and the causal
+conv on fp32 inputs agree with JAX's to 1e-5 plus 1e-4 relative (fp32
+summation order) and the scan with the port's one-token recurrence to 1e-4.
+
+Cache tolerances: up to the first shared block both sides compute from the
+same bits, and the fp32 SSM states agree to 1e-4, the bf16 conv windows to
+one ulp. The shared block's attention (flash's fp32 reduction order) and
+SwiGLU (the GEMM's) each differ from JAX's by one bf16 ulp in a few
+elements, and the Mamba layers after it carry that: from there on each
+cache tensor is held to a relative error (Frobenius norm of the difference
+over the reference's) of 2e-2, five bf16 steps of relative precision
+(measured 2e-3 to 8.5e-3 over three prompts and both configs with a shared
+block; elementwise up to 0.10 on SSM states of size 8), while the logits
+stay within 2e-2.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import mamba2 as jax_mamba2
+from repro_torch import bridge, configs
+from repro_torch.launch.steps import decode_cache
+from repro_torch.models import mamba2
+from repro_torch.models.common import layer_params
+from test_torch_engine_cases import jax_exact
+from test_torch_family_cases import (LOGIT_TOL, STATE_TOL, assert_greedy_matches, bf16_ulps, f32,  # noqa: F401
+                                     jax_flash_prefill, jax_forward, jax_into_cache, jax_prefill,
+                                     make_pair, t2np, tokens)
+
+ARCH = "zamba2-7b"
+CONFIGS = {"reduced": {}, "tail": {"n_layers": 5}, "no_attention": {"shared_attn_every": 0}}
+NOISE_REL = 2e-2  # relative error of a cache tensor after the first shared block
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def pair(request):
+    return make_pair(ARCH, **CONFIGS[request.param])
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_split_counts_match_jax(name):
+    cfg = dataclasses.replace(configs.get_reduced(ARCH), **CONFIGS[name])
+    n_super, every, n_tail = mamba2._split_counts(cfg)
+    assert (n_super, every, n_tail) == jax_mamba2._split_counts(cfg)
+    assert n_super * every + n_tail == cfg.n_layers
+    assert {"reduced": 0, "tail": 1, "no_attention": 4}[name] == n_tail
+    kinds = [k for k, _ in mamba2._schedule(cfg)]
+    assert kinds.count("mamba") == cfg.n_layers and kinds.count("attn") == n_super
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 13, 40])
+def test_causal_conv_matches_jax(S, dtype):
+    """fp32 within 1e-5; bf16 (the model's inputs, summed in fp32 in tap
+    order on both sides) within one ulp."""
+    rng = np.random.default_rng(S)
+    B, Ch, W = 2, 24, 4
+    x, w, prev = (rng.normal(size=s).astype(np.float32) for s in ((B, S, Ch), (Ch, W), (B, W - 1, Ch)))
+    jx, jw, jprev = (jnp.asarray(a, dtype) for a in (x, w, prev))
+    want = jax_exact(jax_mamba2.causal_conv, jx, jw, jprev)(jx, jw, jprev)
+    got = mamba2.causal_conv(*(bridge._to_torch(np.asarray(a)) for a in (jx, jw, jprev)))
+    assert got.shape == (B, S, Ch) and str(got.dtype) == f"torch.{dtype}"
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    else:
+        assert bf16_ulps(bridge._to_numpy(got), np.asarray(want)) <= 1
+
+
+def _ssd_inputs(B, S, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    xh = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(B, S, H)))).astype(np.float32)  # softplus'd
+    loga = (-np.exp(rng.normal(size=(H,)) - 1.0) * dt).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(B, S, N)).astype(np.float32) for _ in range(2))
+    state0 = rng.normal(size=(B, H, P, N)).astype(np.float32)
+    return xh, dt, loga, Bm, Cm, state0
+
+
+@pytest.mark.parametrize("S,chunk", [(1, 16), (16, 16), (45, 16), (100, 32), (7, 64)])
+def test_ssd_chunked_matches_jax(S, chunk):
+    """fp32 inputs of unit scale: y and the state within 1e-5 + 1e-4
+    relative (a chunk's outputs sum up to chunk x N products and the
+    carried state's share, in other orders on the two sides)."""
+    args = _ssd_inputs(2, S, 3, 8, 6, S)
+    want_y, want_s = jax_mamba2.ssd_chunked(*map(jnp.asarray, args), chunk=chunk)
+    got_y, got_s = mamba2.ssd_chunked(*map(torch.from_numpy, args), chunk=chunk)
+    assert got_y.shape == (2, S, 3, 8) and got_s.shape == (2, 3, 8, 6)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(16, 16), (45, 16), (64, 64)])
+def test_ssd_chunked_equals_recurrence(S, chunk):
+    """The chunked scan against one token at a time (decode's recurrence),
+    within 1e-4."""
+    xh, dt, loga, Bm, Cm, state0 = map(torch.from_numpy, _ssd_inputs(2, S, 3, 8, 6, 200 + S))
+    y, st = mamba2.ssd_chunked(xh, dt, loga, Bm, Cm, state0, chunk=chunk)
+    state, ys = state0, []
+    for t in range(S):
+        sl = slice(t, t + 1)
+        yt, state = mamba2.ssd_chunked(xh[:, sl], dt[:, sl], loga[:, sl], Bm[:, sl], Cm[:, sl], state, chunk=1)
+        ys.append(yt)
+    torch.testing.assert_close(torch.cat(ys, 1), y, atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, st, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 45])
+def test_mamba_mix_matches_jax(S):
+    """Layer 0's mixer on bf16 inputs with a random conv window and state:
+    the output within 2e-2, the conv window exact, the state within 1e-4."""
+    pair = make_pair(ARCH)
+    s, d = pair.cfg.ssm, pair.cfg.d_model
+    jp = jax.tree_util.tree_map(lambda t: t[0], pair.jparams["mamba"])
+    p = layer_params(pair.params, 0, "mamba")
+    rng = np.random.default_rng(S)
+    ch = s.heads * s.head_dim + 2 * s.state_dim
+    jx, jprev = (jnp.asarray(rng.normal(size=sh).astype(np.float32), jnp.bfloat16)
+                 for sh in ((2, S, d), (2, s.conv_dim - 1, ch)))
+    st0 = jnp.asarray(rng.normal(size=(2, s.heads, s.head_dim, s.state_dim)).astype(np.float32))
+    fn = lambda p_, x_, pr, s0: jax_mamba2.mamba_mix(pair.jspec.cfg, p_, x_, pr, s0)  # noqa: E731
+    want = jax_exact(fn, jp, jx, jprev, st0)(jp, jx, jprev, st0)
+    got = mamba2.mamba_mix(pair.cfg, p, *(bridge._to_torch(np.asarray(a)) for a in (jx, jprev, st0)))
+    np.testing.assert_allclose(t2np(got[0]), f32(want[0]), atol=2e-2, rtol=0)
+    np.testing.assert_array_equal(t2np(got[1]), f32(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=STATE_TOL, rtol=0)
+
+
+def assert_hybrid_cache_close(cfg, cache, jcache):
+    """The tolerances of the module docstring: the layers before the first
+    shared block (all, without one) at 1e-4 / one ulp, every layer and the
+    attention caches at the relative noise the shared block leaves."""
+    assert set(cache) == set(jcache)
+    assert cache["length"] == int(jcache["length"])
+    n_super, every, _ = mamba2._split_counts(cfg)
+    clean = every if n_super else cfg.n_layers
+    for key, v in cache.items():
+        if key == "length":
+            continue
+        want = jcache[key]
+        assert tuple(v.shape) == want.shape, key
+        if key in ("conv", "ssm"):
+            if v.dtype == torch.float32:
+                np.testing.assert_allclose(t2np(v[:clean]), f32(want[:clean]), atol=STATE_TOL, rtol=0, err_msg=key)
+            else:
+                assert bf16_ulps(bridge._to_numpy(v[:clean]), np.asarray(want[:clean])) <= 1, key
+        got, ref = t2np(v), f32(want)
+        assert np.linalg.norm(got - ref) <= NOISE_REL * np.linalg.norm(ref), key
+
+
+def test_forward_logits_match_jax(pair):
+    toks = tokens(pair.cfg, 2, 45, 1)
+    want = jax_forward(pair, toks)
+    logits, aux, collected = pair.spec.forward(pair.params, torch.from_numpy(toks))
+    assert logits.shape == (2, 45, pair.cfg.vocab) and aux == 0.0 and collected is None
+    np.testing.assert_allclose(t2np(logits), f32(want), atol=LOGIT_TOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def prefilled(pair):
+    toks = tokens(pair.cfg, 2, 45, 2)  # 45: chunks of 32 with a padded second chunk
+    return toks, jax_prefill(pair, toks), pair.spec.prefill(pair.params, torch.from_numpy(toks))
+
+
+def test_prefill_matches_jax(pair, prefilled):
+    _, (jl, jc), (pl, pc) = prefilled
+    np.testing.assert_allclose(t2np(pl), f32(jl), atol=LOGIT_TOL, rtol=0)
+    want_keys = ["conv", "length", "ssm"] + (["attn_k", "attn_v"] if pair.cfg.shared_attn_every else [])
+    assert sorted(pc) == sorted(want_keys)
+    assert_hybrid_cache_close(pair.cfg, pc, jc)
+
+
+def test_decode_steps_match_jax(pair, prefilled):
+    """Three decode steps after the prefill: logits within 2e-2, the cache
+    as after prefill, ``length`` exact."""
+    toks, (_, jc), (_, pc) = prefilled
+    B, S = toks.shape
+    jdc = jax_into_cache(pair.jspec.init_cache(B, S + 5), jc)
+    dc = decode_cache(pair.spec, pc, B, S + 5, device="cpu")
+    feed = np.random.default_rng(3).integers(0, pair.cfg.vocab, size=(3, B, 1)).astype(np.int32)
+    jstep = jax_exact(pair.jspec.decode_step, pair.jparams, jdc, jnp.asarray(feed[0]), jnp.int32(S))
+    for i, tok in enumerate(feed):
+        jl, jdc = jstep(pair.jparams, jdc, jnp.asarray(tok), jnp.int32(S + i))
+        pl, dc = pair.spec.decode_step(pair.params, dc, torch.from_numpy(tok), S + i)
+        np.testing.assert_allclose(t2np(pl), f32(jl), atol=LOGIT_TOL, rtol=0)
+    assert dc["length"] == S + 3
+    assert_hybrid_cache_close(pair.cfg, dc, jdc)
+
+
+def test_greedy_steps_match_jax(pair):
+    assert_greedy_matches(pair, tokens(pair.cfg, 2, 37, 4), n_steps=4)

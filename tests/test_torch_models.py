@@ -1,6 +1,9 @@
-"""Port vs JAX reference: configs, the weight bridge, and the decoder
-families' (dense, moe, vlm) prefill, forward and decode logits on the same
-weights (CPU, reduced configs; llava's prefill and forward take a frontend).
+"""Port vs JAX reference: configs (every arch), the weight bridge, and the
+decoder families' (dense, moe, vlm) prefill, forward and decode logits on
+the same weights (CPU, reduced configs; llava's prefill and forward take a
+frontend); every family through the step builders. The encoder-decoder,
+RWKV6 and Mamba2 families are held against JAX in
+tests/test_torch_{encdec,rwkv6,mamba2}.py.
 
 The port's prefill attention is the flash-attention kernel, whose plain
 version keeps the softmax weights in fp32; JAX's dense prefill calls
@@ -43,7 +46,7 @@ def _t2np(t):
     return t.float().numpy()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_equal(arch, reduced):
     ref = (jax_get_reduced if reduced else jax_get_config)(arch)
@@ -55,6 +58,12 @@ def test_config_fields_equal(arch, reduced):
         assert port_fields[name] == value, name
     assert port.param_count() == ref.param_count()
     assert port.resolved_head_dim == ref.resolved_head_dim
+
+
+def test_registry_is_the_jax_registry():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert sorted(configs.ARCH_IDS) == sorted(JAX_ARCH_IDS)
 
 
 def test_unknown_arch_raises():
@@ -202,10 +211,56 @@ def test_decode_attention_per_row_lengths_match_jax(g):
     assert torch.equal(same, decode_attention(tq, tk, tv, 9))
 
 
-@pytest.mark.parametrize("family", ["encdec", "ssm", "hybrid"])
-def test_other_families_raise(family):
-    cfg = dataclasses.replace(configs.get_reduced("qwen3-1.7b"), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-1.7b"), family="no-such-family")
+    with pytest.raises(ValueError, match="unknown family"):
         ModelSpec(cfg).schema()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown family"):
         ModelSpec(cfg).forward({}, torch.zeros((1, 2), dtype=torch.long))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_smoke_batch_shapes(arch):
+    """Tokens (B, S) int32 in the vocab; a vlm's patch embeddings and an
+    encdec's frames (B, S // 4, d) bf16, as JAX's ``smoke_batch``; seeded."""
+    cfg = configs.get_reduced(arch)
+    spec = ModelSpec(cfg)
+    batch = spec.smoke_batch(torch.Generator().manual_seed(0), batch=2, seq=32, device="cpu")
+    again = spec.smoke_batch(torch.Generator().manual_seed(0), batch=2, seq=32, device="cpu")
+    jbatch = JaxSpec(jax_get_reduced(arch)).smoke_batch(jax.random.PRNGKey(0), batch=2, seq=32)
+    assert sorted(batch) == sorted(jbatch)
+    for key, t in batch.items():
+        assert tuple(t.shape) == jbatch[key].shape, key
+        assert str(t.dtype).removeprefix("torch.") == str(jbatch[key].dtype), key
+        assert torch.equal(t, again[key])
+    assert int(batch["tokens"].min()) >= 0 and int(batch["tokens"].max()) < cfg.vocab
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_prefill_decode_every_family(arch):
+    """tests/test_system.py::test_prefill_decode for the port: every arch's
+    reduced config through ``build_prefill_step``, the prefill cache copied
+    into ``init_cache(2, 48)`` (padded where the decode cache is larger),
+    and one ``build_serve_step``: finite logits of the right shapes, the
+    cache's keys and shapes JAX's, ``length`` 33."""
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step, decode_cache
+
+    cfg = configs.get_reduced(arch)
+    spec = ModelSpec(cfg)
+    gen = torch.Generator().manual_seed(1)
+    params = spec.init(gen, device="cpu")
+    batch = spec.smoke_batch(gen, batch=2, seq=32, device="cpu")
+    logits, cache = spec.prefill(params, batch["tokens"], batch.get("frontend"))
+    assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits.float()).all()
+    tok, cache2 = build_prefill_step(spec)(params, batch["tokens"], batch.get("frontend"))
+    assert tok.dtype == torch.int32 and torch.equal(tok[:, 0], torch.argmax(logits, -1).to(torch.int32))
+    dc = spec.init_cache(2, 48, device="cpu")
+    jdc = JaxSpec(jax_get_reduced(arch)).init_cache(2, 48)
+    assert sorted(dc) == sorted(jdc)
+    assert {k: tuple(v.shape) for k, v in dc.items() if k != "length"} == \
+        {k: v.shape for k, v in jdc.items() if k != "length"}
+    dc = decode_cache(spec, cache2, 2, 48, device="cpu")
+    logits2 = spec.decode_step(params, {**dc}, tok, 32)[0]
+    assert logits2.shape == (2, cfg.vocab) and torch.isfinite(logits2.float()).all()
+    tok2, dc = build_serve_step(spec)(params, dc, tok, 32)
+    assert tok2.shape == (2, 1) and dc["length"] == 33

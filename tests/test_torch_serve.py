@@ -45,6 +45,17 @@ def test_serve_cli_moe_and_vlm_on_cpu(arch):
     assert "completed requests        : 3/3" in out
 
 
+def test_serve_cli_refuses_non_gqa_families():
+    """As JAX's launcher: the tiered engine serves the GQA decoder families;
+    the others exit with JAX's message, pointing to the step builders."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *ARGS, "--arch", "rwkv6-3b"],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert ("tiered serving demo targets GQA decoder families; ssm decode runs via "
+            "repro_torch.launch.steps.build_serve_step") in res.stderr
+
+
 def test_missing_card_is_an_error():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")
