@@ -55,6 +55,26 @@ Phases (any failure exits non-zero; so does a missing card):
      O(1) logits: ROADMAP.md §3). Prints tok/s, a profiled window of 4
      decode steps (device busy, device ops, idle share) and the decode floor
      (bytes a step must move at 3.35 TB/s).
+  7. training — (a) flash attention's backward (the autograd wrapper's
+     ``flash_attention_bwd``, PyTorch ops) at qwen3-1.7b's train shape
+     (1, 4096, 16, 128) / KV 8 causal and at phase 6's shapes: the output
+     against the plain version, and dq, dk, dv against its autograd on the
+     card (TOL's allclose and TOL_BWD_REL of each tensor's max), with the
+     backward's device time, the plain version's, sdpa's backward (the
+     library yardstick, measured only) and a bound. Phase 3 times the
+     forward at the train shape. (b) full-width qwen3-1.7b (2.03 B params)
+     trained through ``launch/steps.py::build_train_step`` on the launcher's
+     ``SyntheticLM`` data: seq 4096, global batch 4, 4 microbatches, remat;
+     one step with int8 error-feedback compression and the others without.
+     Checks: the first step's wq, wk, wv gradients within TRAIN_LEAF_TOL of
+     each leaf's max, and its loss and grad norm within TRAIN_LOSS_RTOL /
+     TRAIN_GNORM_RTOL, of the same step with ``flash_attention_ref`` patched
+     in (same weights, same batch); flash launches exactly 224 a step (28
+     layers x (forward + remat recompute) x 4 microbatches), all on the
+     tensor-core route; every loss finite and the last below the first;
+     params equal to bf16(master) bit for bit after every step. Prints step
+     ms, tokens/s, peak memory, the model-FLOP share and a profiled step's
+     device busy and idle share.
 
 The line before the last is the card as nvidia-smi names it, the one
 before that a JSON object with one entry per kernel, and the last line
@@ -99,6 +119,36 @@ FLASH_FAMILY_SHAPES = (
     ("whisper-base cross-attention", 4, 381, 103, 8, 8, 64, False),
     ("zamba2-7b shared block", 4, 381, 381, 32, 32, 112, True),
 )
+# phase 7: training
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 4096, 4, 4
+TRAIN_STEPS = 6  # step 1 compresses; then one more, profiled
+# no warmup (a first update at lr 0 would test nothing); 1e-5 is the rate
+# at which the random full-width model's loss falls step by step
+# (scripts/train_lr_sweep.py on an H100: at 3e-5 and above, or 3e-4 after a
+# warmup, it climbs for a few steps before it falls)
+TRAIN_LR = 1e-5
+TRAIN_FLASH_PER_STEP = 28 * 2 * TRAIN_ACCUM  # layers x (forward + remat recompute) x microbatches
+TRAIN_PARTS = ("attention backward", "adamw")  # profiler ranges of the profiled step
+# the plain-attention step differs from the kernel's by the kernel's bf16
+# rounding of the softmax weights before P.V (forward and recompute): O by
+# ~1 bf16 ulp here and there, under a mean over 16,384 tokens. About 10x
+# the gaps measured on an H100 (loss 2.43e-5, grad norm 1.08e-5)
+TRAIN_LOSS_RTOL = 2.5e-4
+TRAIN_GNORM_RTOL = 1e-4
+# the attention projections' step-0 gradients, kernel against plain
+# attention, each leaf within this fraction of its max |value| (measured on
+# an H100: wq 0.0054, wk 0.0054, wv 0.0029; a lost gradient through
+# attention is off by 1)
+TRAIN_ATTN_LEAVES = ("blocks.wq", "blocks.wk", "blocks.wv")
+TRAIN_LEAF_TOL = 2e-2
+# flash attention at the train shape (forward and backward), and its
+# backward at phase 6's shapes too
+FLASH_TRAIN_SHAPE = ("qwen3-1.7b train", 1, 4096, 4096, 16, 8, 128, True)
+FLASH_BWD_SHAPES = (FLASH_TRAIN_SHAPE,) + FLASH_FAMILY_SHAPES
+# the backward's dq, dk, dv: besides TOL's allclose, each tensor within this
+# fraction of its max |value| (the CPU tests' bf16 bound)
+TOL_BWD_REL = 1e-2
 MOE_PHASES = ("moe_route", "moe_slots", "moe_dispatch", "moe_experts", "moe_combine")
 NEAR_TIE = 0.125  # logits at full width reach ~4, where bf16 spacing is 1/32
 # phase 6, fp32: the recurrence against the chunked scan at full depth, on
@@ -212,21 +262,47 @@ def device_ms(fn, iters=10, required=True):
     return None, None
 
 
+def window_ms(fn, iters=10, required=True):
+    """(device ms a call, device ops a call) of ``fn`` from one profiler
+    window: the union of every device op of ``iters`` back-to-back calls,
+    over ``iters``. For calls whose ops the profiler does not count alike
+    each time (an autograd backward under the full run: 1,266 ops in 10
+    calls where one call alone has 128), which ``device_ms`` cannot split
+    call by call. Retried as ``device_ms`` when the window is empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_device:
+            return union_ms(on_device) / iters, len(on_device) / iters
+        print(f"  (the profiler saw no device op in {iters} calls; taking the window again)")
+    if required:
+        raise AssertionError("the profiler saw no device op in three windows")
+    return None, None
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_BF16):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def timed(kernel, plain, library, err, bound):
+def timed(kernel, plain, library, err, bound, device=device_ms):
     """One row of phase 3: CUDA-event and profiler times of the kernel, its
-    plain version and the library yardstick."""
-    dev, ops = device_ms(kernel)
-    plain_dev, plain_ops = device_ms(plain)
+    plain version and the library yardstick (``device``: how a profiler
+    window is read)."""
+    dev, ops = device(kernel)
+    plain_dev, plain_ops = device(plain)
     return dict(
         max_abs_err=err, ms=cuda_ms(kernel), device_ms=dev, device_ops=ops, plain_ms=cuda_ms(plain),
         plain_device_ms=plain_dev, plain_device_ops=plain_ops,
         library_ms=None if library is None else cuda_ms(library),
-        library_device_ms=None if library is None else device_ms(library, required=False)[0], bound=bound,
+        library_device_ms=None if library is None else device(library, required=False)[0], bound=bound,
     )
 
 
@@ -520,8 +596,8 @@ def check_kernels(full):
 
 
 def check_flash_family_shapes():
-    """Phase 3, flash attention at phase 6's shapes (bf16, tensor-core
-    route): rows for the flash entry's ``extra``."""
+    """Phase 3, flash attention at phase 6's shapes and the train shape
+    (bf16, tensor-core route): rows for the flash entry's ``extra``."""
     from repro_torch.kernels import reset_launch_counts, route_counts
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -530,7 +606,7 @@ def check_flash_family_shapes():
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES:
+    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE,):
         fq = torch.randn((B, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
         fk, fv = (torch.randn((B, S_kv, KV, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         reset_launch_counts()
@@ -925,6 +1001,212 @@ def serve(full, reduced, card, prompts):
     return counts, routes
 
 
+def check_flash_backward():
+    """Phase 7 (a): flash attention's forward and backward (the wrapper's
+    autograd node: ``flash_attention_bwd``) against the plain version and
+    its autograd, with the backward's times, the plain version's and sdpa's
+    backward. Each of dq, dk, dv passes TOL's allclose and lies within
+    TOL_BWD_REL of its max |value|."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, B, S, S_kv, H, KV, hd, causal in FLASH_BWD_SHAPES:
+        def leaf(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+
+        q, k, v = leaf(B, S, H, hd), leaf(B, S_kv, KV, hd), leaf(B, S_kv, KV, hd)
+        dout = torch.randn((B, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+        out = flash_attention(q, k, v, causal=causal)
+        if out.grad_fn is None:
+            raise AssertionError("flash attention's output on the card has no autograd node")
+        got = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+        out_ref = flash_attention_ref(q, k, v, causal=causal)
+        check_close(f"flash attention {name}", out, out_ref, TOL["flash_attention"])
+        want = torch.autograd.grad(out_ref, (q, k, v), dout, retain_graph=True)
+        err = max(check_close(f"flash backward {name} d{x}", a, b, TOL["flash_attention"])
+                  for x, a, b in zip("qkv", got, want))
+        rel = 0.0
+        for x, a, b in zip("qkv", got, want):
+            r = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+            if not r <= TOL_BWD_REL:
+                raise AssertionError(f"flash backward {name} d{x}: max abs err {r:.3g} of max |value| "
+                                     f"(tol {TOL_BWD_REL})")
+            rel = max(rel, r)
+        g = H // KV
+        qt = q.detach().transpose(1, 2).requires_grad_(True)
+        kt, vt = (t.detach().repeat_interleave(g, 2).transpose(1, 2).requires_grad_(True) for t in (k, v))
+        out_s, dout_t = sdpa(qt, kt, vt, is_causal=causal), dout.transpose(1, 2)
+        pairs = S * (S + 1) // 2 - max(S - S_kv, 0) * (S - S_kv + 1) // 2 if causal else S * S_kv
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel())  # read q, k, v, o, dO; write dq, dk, dv (bf16)
+        rows.append(dict(shape=f"{name}: B={B} S={S} S_kv={S_kv} H={H} KV={KV} hd={hd} "
+                               f"{'causal' if causal else 'non-causal'}", **timed(
+            lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True),
+            lambda: torch.autograd.grad(out_ref, (q, k, v), dout, retain_graph=True),
+            lambda: torch.autograd.grad(out_s, (qt, kt, vt), dout_t, retain_graph=True), err,
+            bound_ms(nbytes, 2.5 * 4.0 * B * H * hd * pairs), device=window_ms,
+        ), max_rel_err=rel))
+        del out, out_ref, out_s, got, want
+        torch.cuda.empty_cache()
+    for r in rows:
+        lib_dev = "not measured" if r["library_device_ms"] is None else f"{r['library_device_ms']:.4f}"
+        print(f"  flash backward {r['shape']}: err {r['max_abs_err']:.3g} (tol {TOL['flash_attention']}), "
+              f"{r['max_rel_err']:.3g} of max (tol {TOL_BWD_REL})  "
+              f"wrapper {r['ms']:.4f} ms (device {r['device_ms']:.4f}, {r['device_ops']:.1f} ops)  plain "
+              f"{r['plain_ms']:.4f} ms (device {r['plain_device_ms']:.4f})  sdpa backward {r['library_ms']:.4f} ms "
+              f"(device {lib_dev})  bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return rows
+
+
+def train(card):
+    """Phase 7 (b): full-width qwen3-1.7b through ``build_train_step``.
+    Returns (flash launches of the training run, its routes)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import OptimConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.steps import build_train_step, make_train_state
+    from repro_torch.models import dense
+    from repro_torch.models.api import ModelSpec
+    from repro_torch.optim.adamw import global_norm
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    spec = ModelSpec(cfg)
+    n_params = spec.param_count()
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    optim = OptimConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS + 1)
+    plain_step = build_train_step(spec, optim, TRAIN_ACCUM)
+    compress_step = build_train_step(spec, dataclasses.replace(optim, compress_grads=True), TRAIN_ACCUM)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(spec, torch.Generator(device=dev).manual_seed(SEED), compress=True, device=dev)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(i).items()}
+
+    print(f"  config {cfg.name}: {n_params / 1e9:.3f} B params; seq {TRAIN_SEQ}, global batch {TRAIN_BATCH}, "
+          f"{TRAIN_ACCUM} microbatches, remat; {optim}")
+    # the reference: step 0's loss, grad norm and attention-projection grads
+    # with the plain attention
+    with patched(dense, "flash_attention", lambda _: flash_attention_ref):
+        reset_launch_counts()
+        grads, loss = plain_step.grads_and_loss(state["params"], batch_at(0))
+        ref_loss, ref_gnorm = float(loss), float(global_norm(grads))
+        ref_attn = {n: grads[n] for n in TRAIN_ATTN_LEAVES}
+        if launch_counts()["flash_attention"]:
+            raise AssertionError("the plain-attention step launched the flash kernel")
+        del grads, loss
+    torch.cuda.empty_cache()
+    # the same gradients through the kernel and its backward, leaf by leaf
+    grads, _ = plain_step.grads_and_loss(state["params"], batch_at(0))
+    for n in TRAIN_ATTN_LEAVES:
+        scale = ref_attn[n].abs().max().item()
+        rel = (grads[n] - ref_attn[n]).abs().max().item() / scale
+        print(f"  step 0 {n} gradient, kernel vs plain attention: max abs err {rel:.3g} of max {scale:.3g} "
+              f"(tol {TRAIN_LEAF_TOL})")
+        if not (scale > 0 and rel <= TRAIN_LEAF_TOL):
+            raise AssertionError(f"step 0: the kernel's {n} gradient is not the plain-attention step's")
+    del grads, ref_attn
+    torch.cuda.empty_cache()
+
+    def bits_equal_master():
+        with torch.no_grad():
+            return all(torch.equal(p, state["opt"].master[n].to(torch.bfloat16)) for n, p in state["params"].items())
+
+    losses, gnorms, times = [], [], []
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        step_fn = compress_step if i == 1 else plain_step
+        batch = batch_at(i)
+        before = launch_counts()["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+        n_flash = launch_counts()["flash_attention"] - before
+        print(f"  step {i}{' (compressed)' if i == 1 else ''}: loss {m['loss']:.5f} grad_norm {m['grad_norm']:.5f} "
+              f"lr {m['lr']:.3e} step {int(m['step'])}; {times[-1] * 1e3:.1f} ms; flash launches {n_flash}")
+        if n_flash != TRAIN_FLASH_PER_STEP:
+            raise AssertionError(f"step {i}: {n_flash} flash launches, want {TRAIN_FLASH_PER_STEP}")
+        if not bits_equal_master():
+            raise AssertionError(f"step {i}: params are not bf16(master)")
+        if i == 0:
+            dl, dg = abs(m["loss"] - ref_loss) / ref_loss, abs(m["grad_norm"] - ref_gnorm) / ref_gnorm
+            print(f"  plain-attention step 0: loss {ref_loss:.5f} grad_norm {ref_gnorm:.5f}; relative gap loss "
+                  f"{dl:.3g} (tol {TRAIN_LOSS_RTOL}), grad_norm {dg:.3g} (tol {TRAIN_GNORM_RTOL})")
+            if dl > TRAIN_LOSS_RTOL or dg > TRAIN_GNORM_RTOL:
+                raise AssertionError("the kernel's step 0 is not the plain-attention step's")
+    counts, routes = launch_counts(), route_counts()
+    want = {name: 0 for name in counts}
+    want["flash_attention"] = TRAIN_FLASH_PER_STEP * TRAIN_STEPS
+    if counts != want or routes != {"tensor_core": want["flash_attention"], "cuda_core": 0}:
+        raise AssertionError(f"training launches {counts}, routes {routes}; want {want}, all tensor-core")
+
+    # one more step under the profiler: device busy, idle share, and the
+    # device time of the attention backward and of AdamW (profiler ranges)
+    from torch.profiler import record_function
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import steps
+
+    def ranged(name):
+        def wrap(fn):
+            def run(*args, **kw):
+                with record_function(name):
+                    return fn(*args, **kw)
+            return run
+        return wrap
+
+    batch = batch_at(TRAIN_STEPS)
+    with patched(flash_ops, "flash_attention_bwd", ranged(TRAIN_PARTS[0])), \
+            patched(steps, "adamw_update", ranged(TRAIN_PARTS[1])):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, metrics = plain_step(state, batch)
+            torch.cuda.synchronize()
+    losses.append(float(metrics["loss"]))
+    events = prof.events()
+    part_ms = {name: sum(e.device_time_total for e in events
+                         if e.device_type == torch.autograd.DeviceType.CPU and e.name == name) / 1e3
+               for name in TRAIN_PARTS}
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in TRAIN_PARTS]
+    if not on_device:
+        raise AssertionError("the profiler saw no device op in the training step")
+    busy_ms = union_ms(on_device)
+    by_name = {}
+    for e in on_device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite, or the last is not below the first")
+    step_s = float(np.mean(times[2:]))  # steady steps without compression
+    print(f"  losses {[round(x, 5) for x in losses]} (the last profiled)")
+    print(f"  train step (steps 2-{TRAIN_STEPS - 1}, untraced) {step_s * 1e3:.1f} ms; {tokens / step_s:.0f} tokens/s; "
+          f"model-FLOP share 6 N tokens / (step s x 989e12) = {6 * n_params * tokens / (step_s * PEAK_BF16):.4f}; "
+          f"compressed step {times[1] * 1e3:.1f} ms — on {card}")
+    print(f"  profiled step: device busy {busy_ms:.1f} ms ({len(on_device)} device ops); idle share "
+          f"{1 - busy_ms / (step_s * 1e3):.3f} of the untraced step; device ms by part: "
+          + ", ".join(f"{name} {ms:.1f}" for name, ms in part_ms.items())
+          + f", the rest (model forward, remat, backward; loss) {busy_ms - sum(part_ms.values()):.1f}")
+    print(f"  peak memory {peak / 1e9:.2f} GB (max_memory_allocated; budget ~55 GB: bf16 params 4.1, fp32 "
+          f"master/mu/nu 24.4, gradient sum 8.1, residual 8.1, bf16 .grad 4.1, fp32 logits ~2.5 a copy)")
+    for name, ms in sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]:
+        print(f"    {ms:9.3f} ms  {name[:90]}")
+    return counts, routes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -963,6 +1245,10 @@ def main() -> int:
         for arch in FAMILY_ARCHS:
             counts_family[arch] = serve_family(get_config(arch), card)
             torch.cuda.empty_cache()
+    with phase("training"):
+        flash_backward = check_flash_backward()
+        counts_train, routes_train = train(card)
+    torch.cuda.empty_cache()
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
             "library_device_ms")
@@ -986,13 +1272,20 @@ def main() -> int:
         entry["extra"] = [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "bound_ms": x["bound"][0],
                            "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in extra]
         entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name],
-                                     **{arch: c[name] for arch, c in counts_family.items()}}
+                                     **{arch: c[name] for arch, c in counts_family.items()},
+                                     f"train {TRAIN_ARCH}": counts_train[name]}
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
     kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS
     kernels[2]["ulps_group_size_1"] = rows_g1["kv_log_append"]["ulps"]
     kernels[3]["tensor_core_launches"] = routes["tensor_core"]
-    kernels[3]["tensor_core_launches_by_path"] = {full.name: routes["tensor_core"], moe_full.name: routes_moe["tensor_core"]}
+    kernels[3]["tensor_core_launches_by_path"] = {full.name: routes["tensor_core"], moe_full.name: routes_moe["tensor_core"],
+                                                  f"train {TRAIN_ARCH}": routes_train["tensor_core"]}
+    kernels[3]["launches_per_train_step"] = TRAIN_FLASH_PER_STEP
+    kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
+                               "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
+                               "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
+                               **{k: x[k] for k in keys}} for x in flash_backward]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

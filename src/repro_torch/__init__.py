@@ -1,7 +1,10 @@
-"""PyTorch + CUDA port of the SkyByte tiered-KV serving stack.
+"""PyTorch + CUDA port of the JAX package ``repro``'s model stack: the
+SkyByte tiered-KV serving engine, every model family's prefill and decode,
+and the training path (loss, AdamW, int8 error feedback, the train step,
+data pipeline, checkpointer and ``launch.train``).
 
-Mirrors the module layout of the JAX package ``repro`` (the reference it is
-tested against) but imports nothing of it. Entry points run on ``cuda``
+Mirrors the module layout of the JAX package (the reference it is tested
+against) but imports nothing of it. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on the CPU every hand-written
 CUDA kernel is replaced by its plain PyTorch version.
 """

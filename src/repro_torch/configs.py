@@ -1,7 +1,8 @@
 """Model configs for the PyTorch port.
 
 A copy of ``ModelConfig`` (with the ``MoEConfig`` / ``SSMConfig`` field
-types it names) and of the registry entries the port serves: the port
+types it names), of ``OptimConfig`` and of the registry entries the port
+serves and trains: the port
 imports nothing of ``repro``, not even its framework-free modules, so it
 keeps its own copy. Field names, defaults and values match the JAX package
 field by field (``tests/test_torch_models.py`` checks it).
@@ -533,3 +534,20 @@ def get_reduced(arch: str) -> ModelConfig:
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch][1]()
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """AdamW, its cosine schedule and the int8 gradient compression (copy of
+    ``repro/configs/base.py::OptimConfig``)."""
+
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # distributed-optimization tricks
+    compress_grads: bool = False  # int8 + error-feedback DP all-reduce

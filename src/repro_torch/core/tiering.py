@@ -31,7 +31,7 @@ from repro_torch.kernels.kv_log_append.ops import qkv_log_append
 from repro_torch.kernels.log_compact.ops import log_compact_tiers
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models.api import ModelSpec
-from repro_torch.models.common import layer_params
+from repro_torch.models.common import layer_stack
 from repro_torch.models.dense import _attn_params, _ffn, unembed
 from repro_torch.models.layers import rmsnorm
 
@@ -145,8 +145,7 @@ def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
         tail = state["log_tail"]
         meta_pos = torch.where(live, lengths, -1)
         lengths1 = lengths + 1  # attention covers the just-appended token
-        for layer in range(cfg.n_layers):
-            p_l = layer_params(params, layer)
+        for layer, p_l in enumerate(layer_stack(params)):
             ap = _attn_params(cfg, p_l)
             h = rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
             # write path: this token's K/V, finished, appended to the log

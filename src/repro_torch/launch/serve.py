@@ -30,7 +30,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.tiering import TieredKVConfig
 from repro_torch.models import dense
 from repro_torch.models.api import ModelSpec
-from repro_torch.models.common import layer_params
+from repro_torch.models.common import layer_stack
 from repro_torch.models.layers import decode_attention, project_qkv, rmsnorm
 from repro_torch.serving.engine import Request, TieredEngine
 
@@ -120,8 +120,7 @@ def replay_dense(
         rows = torch.tensor([slot[r] if r >= 0 else len(rids) for r in req], device=device)
         pos = torch.tensor([lengths[r] if r >= 0 else 0 for r in req], device=device)
         x = params["embed"][tokens.to(device).long()]  # (B, 1, d)
-        for layer in range(cfg.n_layers):
-            p_l = layer_params(params, layer)
+        for layer, p_l in enumerate(layer_stack(params)):
             h = rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
             q, k, v = project_qkv(cfg, dense._attn_params(cfg, p_l), h, pos[:, None])
             cache_k[layer, rows, pos] = k[:, 0]

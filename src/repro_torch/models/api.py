@@ -2,9 +2,9 @@
 family modules.
 
 ``ModelSpec(cfg)`` provides ``schema`` / ``init`` / ``param_count``,
-``forward`` / ``prefill`` / ``decode_step`` / ``init_cache`` and
-``smoke_batch``. Training's ``loss`` is not ported yet (ROADMAP.md §1 item
-8). The step builders live in ``repro_torch.launch.steps``.
+``loss`` (next-token cross entropy plus the MoE aux), ``forward`` /
+``prefill`` / ``decode_step`` / ``init_cache`` and ``smoke_batch``. The
+step builders (train, prefill, serve) live in ``repro_torch.launch.steps``.
 """
 from __future__ import annotations
 
@@ -48,14 +48,36 @@ class ModelSpec:
         return common.param_count(self.schema())
 
     # ---- compute ----
-    def forward(self, params, tokens, frontend: Optional[torch.Tensor] = None, **kw):
-        return self.mod.forward(self.cfg, params, tokens, frontend, **kw)
+    def forward(self, params, tokens, frontend: Optional[torch.Tensor] = None, *, remat: bool = True, **kw):
+        return self.mod.forward(self.cfg, params, tokens, frontend, remat=remat, **kw)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], *, remat: bool = True):
+        """Mean next-token cross entropy over ``log_softmax`` of the fp32
+        logits, plus the MoE aux. Returns (loss, {"ce", "aux", "loss"}), 0-d
+        fp32 tensors. A vlm's logits at positions [nf - 1, nf - 1 + S)
+        predict its S text tokens; the start is clamped into the logits as
+        ``jax.lax.dynamic_slice_in_dim`` clamps it (without a frontend it is
+        0, and each position then scores its own token, as in JAX)."""
+        cfg, tokens = self.cfg, batch["tokens"]
+        logits, aux, _ = self.forward(params, tokens, batch.get("frontend"), remat=remat)
+        S = tokens.shape[1]
+        if cfg.family == "vlm" and cfg.n_frontend_tokens:
+            start = min(max(cfg.n_frontend_tokens - 1, 0), logits.shape[1] - S)
+            pred, targets = logits[:, start:start + S], tokens
+        else:
+            pred, targets = logits[:, :-1], tokens[:, 1:]
+        logp = torch.log_softmax(pred.float(), dim=-1)
+        ce = -torch.mean(logp.gather(-1, targets.long()[..., None])[..., 0])
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux, "loss": loss}
 
     def prefill(self, params, tokens, frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Full-context forward collecting decode state. Returns
         (last_logits (B, V), cache); the cache's ``length`` is the token
         count S, as in JAX."""
-        logits, _, collected = self.forward(params, tokens, frontend, collect_kv=True, unembed_last_only=True)
+        logits, _, collected = self.forward(params, tokens, frontend, remat=False, collect_kv=True,
+                                            unembed_last_only=True)
         return logits[:, -1], self._assemble_cache(collected, tokens.shape[1])
 
     def _assemble_cache(self, collected, S: int) -> Dict[str, Any]:

@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Schema = Dict[str, Any]
 Params = Dict[str, torch.Tensor]
@@ -84,7 +85,22 @@ def sub_params(params: Params, group: str) -> Params:
     return {name[len(prefix):]: t for name, t in params.items() if name.startswith(prefix)}
 
 
-def layer_params(params: Params, layer: int, stack: str = "blocks") -> Params:
-    """Views of layer ``layer`` of every stacked ``<stack>.*`` parameter
-    (``blocks``; the encoder-decoder's ``enc`` and ``dec``; ``mamba``)."""
-    return {name: t[layer] for name, t in sub_params(params, stack).items()}
+def layer_stack(params: Params, stack: str = "blocks") -> List[Params]:
+    """Views of every layer of the stacked ``<stack>.*`` parameters
+    (``blocks``; the encoder-decoder's ``enc`` and ``dec``; ``mamba``), from
+    ONE ``unbind(0)`` per parameter: under autograd its backward is a single
+    ``stack`` of the layers' gradients, where ``t[layer]`` for each layer
+    would build a zero-filled gradient of the whole stack per layer."""
+    per = {name: t.unbind(0) for name, t in sub_params(params, stack).items()}
+    n = len(next(iter(per.values())))
+    return [{name: views[i] for name, views in per.items()} for i in range(n)]
+
+
+def maybe_remat(fn: Callable, enabled: bool, *args):
+    """``fn(*args)``; with ``enabled``, while autograd records, its
+    activations are dropped and recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant: the port's ``jax.checkpoint``
+    of a layer body). The numbers are the same either way."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import Leaf, Params, layer_params, stacked
+from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
 from repro_torch.models.layers import AttnParams, decode_attention, moe_ffn, project_qkv, rmsnorm, swiglu
 
 def schema(cfg: ModelConfig) -> Dict[str, Any]:
@@ -129,6 +129,7 @@ def forward(
     tokens: torch.Tensor,  # (B, S) integer
     frontend: Optional[torch.Tensor] = None,  # (B, Sf, d) for a vlm
     *,
+    remat: bool = True,
     collect_kv: bool = False,
     unembed_last_only: bool = False,
 ):
@@ -137,14 +138,16 @@ def forward(
     kv (if collected): (k, v) each (L, B, Sf + S, KV, hd) — the prefill
     cache; aux_loss is then 0, as in JAX (the sum over layers otherwise).
     ``unembed_last_only`` skips the (B, S, V) logit tensor (prefill path).
+    ``remat``: each layer's activations are recomputed in the backward
+    (JAX's ``jax.checkpoint`` of the layer body).
     """
     x = embed_inputs(cfg, params, tokens, frontend)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     ks, vs = [], []
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(cfg.n_layers):
-        x, aux, k, v = _block(cfg, layer_params(params, layer), x, positions, aux=not collect_kv)
+    for p_l in layer_stack(params):
+        x, aux, k, v = maybe_remat(_block, remat, cfg, p_l, x, positions, not collect_kv)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -187,8 +190,7 @@ def decode_step(
     x = params["embed"][tokens]  # (B, 1, d)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    for layer in range(cfg.n_layers):
-        p_l = layer_params(params, layer)
+    for layer, p_l in enumerate(layer_stack(params)):
         h = rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
         q, k, v = project_qkv(cfg, _attn_params(cfg, p_l), h, positions)
         cache["k"][layer, :, pos] = k[:, 0]

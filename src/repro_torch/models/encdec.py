@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import Leaf, Params, layer_params, stacked
+from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
 from repro_torch.models.layers import AttnParams, decode_attention, gelu_mlp, project_qkv, rmsnorm
 
 
@@ -82,18 +82,22 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:2], -1)
 
 
-def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+def _enc_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """One encoder layer (full attention)."""
+    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
+    x = x + _merge_heads(flash_attention(q, k, v, causal=False)) @ p["attn_wo"]
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + gelu_mlp(h, p["w_in"], p["w_out"])
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *, remat: bool = True) -> torch.Tensor:
     """frames: (B, S_enc, d) stub frontend embeddings -> (B, S_enc, d). The
     frames are cast to the weights' dtype (bf16, as JAX casts them)."""
     x = frames.to(params["frontend_proj"].dtype) @ params["frontend_proj"]
     x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(x.dtype)
-    for layer in range(cfg.enc_layers):
-        p = layer_params(params, layer, "enc")
-        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
-        x = x + _merge_heads(flash_attention(q, k, v, causal=False)) @ p["attn_wo"]
-        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + gelu_mlp(h, p["w_in"], p["w_out"])
+    for p in layer_stack(params, "enc"):
+        x = maybe_remat(_enc_block, remat, cfg, p, x)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -124,17 +128,20 @@ def forward(
     tokens: torch.Tensor,  # (B, S) decoder tokens
     frontend: torch.Tensor,  # (B, S_enc, d) frame embeddings
     *,
+    remat: bool = True,
     collect_kv: bool = False,
     unembed_last_only: bool = False,
 ):
     """Returns (logits, 0.0, (k, v, ck, cv) each stacked over layers, or
-    None): k/v (L, B, S, KV, hd), ck/cv (L, B, S_enc, KV, hd)."""
-    enc_out = encode(cfg, params, frontend)
+    None): k/v (L, B, S, KV, hd), ck/cv (L, B, S_enc, KV, hd). ``remat``:
+    each encoder and decoder layer is recomputed in the backward (JAX's
+    ``jax.checkpoint`` of both scan bodies)."""
+    enc_out = encode(cfg, params, frontend, remat=remat)
     x = params["embed"][tokens]
     x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(x.dtype)
     kvs = []
-    for layer in range(cfg.n_layers):
-        x, kv = _dec_block(cfg, layer_params(params, layer, "dec"), x, enc_out)
+    for p in layer_stack(params, "dec"):
+        x, kv = maybe_remat(_dec_block, remat, cfg, p, x, enc_out)
         if collect_kv:
             kvs.append(kv)
     if unembed_last_only:
@@ -172,8 +179,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any], tokens:
     x = params["embed"][tokens]  # (B, 1, d)
     B = x.shape[0]
     x = x + sinusoid_at(pos, x.shape[-1], device=x.device).to(x.dtype)
-    for layer in range(cfg.n_layers):
-        p = layer_params(params, layer, "dec")
+    for layer, p in enumerate(layer_stack(params, "dec")):
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
         cache["k"][layer, :, pos] = k[:, 0]

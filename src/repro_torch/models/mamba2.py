@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import Leaf, Params, layer_params, stacked, sub_params
+from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked, sub_params
 from repro_torch.models.layers import AttnParams, decode_attention, project_qkv, rmsnorm, swiglu
 
 
@@ -126,7 +126,10 @@ def ssd_chunked(
         xb, dtb, lab, Bb, Cb = xc[n], dtc[n], lac[n], Bc[n], Cc[n]
         cum = torch.cumsum(lab, dim=1)  # (B, C, H) inclusive
         diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Ci, Cj, H), <= 0 on the mask
-        decay = torch.where(lower, torch.exp(diff), 0.0)
+        # masked before the exp: the same numbers as JAX's where(lower,
+        # exp(diff), 0), but the pairs above the diagonal (diff > 0, which
+        # overflows to inf beyond ~88) give a gradient of 0, not 0 * inf = NaN
+        decay = torch.exp(torch.where(lower, diff, float("-inf")))
         cb = Cb @ Bb.transpose(1, 2)  # (B, Ci, Cj), shared by the heads
         dtx = xb * dtb[..., None]  # (B, C, H, P)
         # y_i = sum_j cb_ij decay_ijh dtx_jh in two explicit steps: a
@@ -220,36 +223,52 @@ def forward(
     tokens: torch.Tensor,
     frontend=None,
     *,
+    remat: bool = True,
     collect_kv: bool = False,
     unembed_last_only: bool = False,
 ):
     """Returns (logits, 0.0, states or None): states (conv (L, B, W-1, ch),
     ssm (L, B, H, P, N)) and, with a shared block, (attn_k, attn_v) each
-    (n_super, B, S, KV, hd) after them."""
+    (n_super, B, S, KV, hd) after them. ``remat`` recomputes in the backward
+    what JAX's ``jax.checkpoint`` does: each Mamba layer, and each super
+    block (its Mamba layers and the shared block) around them."""
     x = params["embed"][tokens]
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     conv0, ssm0 = _zero_states(cfg, B, x.dtype, x.device)
     shared = sub_params(params, "shared_attn")
-    convs, ssms, ks, vs = [], [], [], []
-    for kind, i in _schedule(cfg):
-        if kind == "mamba":
-            x, conv, ssm = _mamba_layer(cfg, layer_params(params, i, "mamba"), x, conv0, ssm0)
-            convs.append(conv)
-            ssms.append(ssm)
-        else:
-            x, (k, v) = _shared_attn_block(cfg, shared, x, positions)
-            ks.append(k)
-            vs.append(v)
+    mamba = layer_stack(params, "mamba")
+    n_super, every, _ = _split_counts(cfg)
+    states, ks, vs = [], [], []
+
+    def mamba_run(x, layers):  # -> (x, [(conv, ssm) of each layer])
+        out = []
+        for p in layers:
+            x, conv, ssm = maybe_remat(_mamba_layer, remat, cfg, p, x, conv0, ssm0)
+            out.append((conv, ssm))
+        return x, out
+
+    def super_block(x, layers):
+        x, st = mamba_run(x, layers)
+        return (*_shared_attn_block(cfg, shared, x, positions), st)
+
+    for sb in range(n_super):
+        x, (k, v), st = maybe_remat(super_block, remat, x, mamba[sb * every:(sb + 1) * every])
+        states += st
+        ks.append(k)
+        vs.append(v)
+    x, st = mamba_run(x, mamba[n_super * every:])
+    states += st
     if unembed_last_only:
         x = x[:, -1:]
     logits = rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
     if not collect_kv:
         return logits, 0.0, None
-    states = (torch.stack(convs), torch.stack(ssms))
+    convs, ssms = zip(*states)
+    collected = (torch.stack(convs), torch.stack(ssms))
     if ks:
-        states += (torch.stack(ks), torch.stack(vs))
-    return logits, 0.0, states
+        collected += (torch.stack(ks), torch.stack(vs))
+    return logits, 0.0, collected
 
 
 # ---------------------------------------------------------------------------
@@ -281,9 +300,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any], tokens:
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     shared = sub_params(params, "shared_attn")
+    mamba = layer_stack(params, "mamba")
     for kind, i in _schedule(cfg):
         if kind == "mamba":
-            x, conv, ssm = _mamba_layer(cfg, layer_params(params, i, "mamba"), x, cache["conv"][i], cache["ssm"][i])
+            x, conv, ssm = _mamba_layer(cfg, mamba[i], x, cache["conv"][i], cache["ssm"][i])
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
         else:

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.common import Leaf, Params, layer_params, stacked
+from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
 from repro_torch.models.layers import rmsnorm
 
 LORA = 64  # low-rank width of the data-dependent decay projection
@@ -167,20 +167,22 @@ def forward(
     tokens: torch.Tensor,
     frontend=None,
     *,
+    remat: bool = True,
     collect_kv: bool = False,
     unembed_last_only: bool = False,
 ):
     """Full-sequence forward from a zero state. Returns (logits, 0.0,
     (tm_prev (L, B, 1, d), cm_prev (L, B, 1, d), wkv (L, B, H, K, V)) or
-    None)."""
+    None). ``remat``: each layer is recomputed in the backward (JAX's
+    ``jax.checkpoint`` of the layer body)."""
     s = cfg.ssm
     x = params["embed"][tokens]
     B, _, d = x.shape
     zero_prev = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
     zero_state = torch.zeros((B, s.heads, s.head_dim, s.head_dim), dtype=torch.float32, device=x.device)
     tms, cms, sts = [], [], []
-    for layer in range(cfg.n_layers):
-        x, tm, cm, st = _layer(cfg, layer_params(params, layer), x, zero_prev, zero_prev, zero_state, s.chunk)
+    for p in layer_stack(params):
+        x, tm, cm, st = maybe_remat(_layer, remat, cfg, p, x, zero_prev, zero_prev, zero_state, s.chunk)
         if collect_kv:
             tms.append(tm)
             cms.append(cm)
@@ -215,8 +217,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any], tokens:
     token, so decode is the prefill's function. Returns (logits (B, V),
     cache); the state is written IN PLACE."""
     x = params["embed"][tokens]  # (B, 1, d)
-    for layer in range(cfg.n_layers):
-        x, tm, cm, st = _layer(cfg, layer_params(params, layer), x, cache["tm_prev"][layer],
+    for layer, p in enumerate(layer_stack(params)):
+        x, tm, cm, st = _layer(cfg, p, x, cache["tm_prev"][layer],
                                cache["cm_prev"][layer], cache["wkv"][layer], chunk=1)
         cache["tm_prev"][layer] = tm
         cache["cm_prev"][layer] = cm

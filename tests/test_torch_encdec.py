@@ -18,7 +18,7 @@ from repro_torch import bridge
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.launch.steps import decode_cache
 from repro_torch.models import encdec, layers
-from repro_torch.models.common import layer_params
+from repro_torch.models.common import layer_stack
 from test_torch_engine_cases import jax_exact
 from test_torch_family_cases import (LOGIT_TOL, assert_cache_close, assert_greedy_matches, bf16_ulps, f32,  # noqa: F401
                                      frames, jax_flash_prefill, jax_forward, jax_into_cache, jax_prefill,
@@ -92,7 +92,7 @@ def test_encode_matches_jax(pair):
 def test_cross_kv_is_a_plain_matmul(pair):
     """Cross K/V: the encoder output times cross_wk / cross_wv, reshaped to
     heads, no bias and no RoPE."""
-    p = layer_params(pair.params, 1, "dec")
+    p = layer_stack(pair.params, "dec")[1]
     enc_out = torch.randn(2, 7, pair.cfg.d_model, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     ck, cv = encdec._cross_kv(pair.cfg, p, enc_out)
     assert ck.shape == (2, 7, pair.cfg.n_kv_heads, pair.cfg.resolved_head_dim)

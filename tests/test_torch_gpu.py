@@ -526,3 +526,128 @@ def test_family_on_the_card(cuda, arch):
         logits[dev] = torch.stack(out).float().cpu()
     assert torch.isfinite(logits["cuda"]).all()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=3e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# training: flash attention's backward, the loss and grads, the launcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S,S_kv,causal", [(381, 381, True), (381, 381, False), (1100, 1100, True), (381, 103, False),
+                                           (35, 9, False), (100, 250, True)])
+@pytest.mark.parametrize("hd,g", [(64, 1), (112, 1), (128, 2)])
+def test_flash_attention_backward(cuda, hd, g, S, S_kv, causal, monkeypatch):
+    """The wrapper's output carries an autograd node on the card; its
+    backward (``flash_attention_bwd``: PyTorch ops in fp32, over query
+    chunks of 1024, so S = 1100 takes two) gives autograd-of-the-plain-
+    version's dq, dk, dv within the bf16 flash tolerance (3e-2: the kernel
+    rounds the softmax weights to bf16 before P.V, so O, and with it
+    rowsum(dO o O), differs by a bf16 ulp here and there) and within 1e-2
+    of each tensor's max |value| (the CPU tests' bf16 bound), launches no
+    kernel and never calls the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+
+    rng = np.random.default_rng(hd + S + S_kv + g)
+    KV = 2
+    q = _rand(rng, (2, S, KV * g, hd), "bfloat16", cuda).requires_grad_(True)
+    k, v = (_rand(rng, (2, S_kv, KV, hd), "bfloat16", cuda).requires_grad_(True) for _ in range(2))
+    dout = _rand(rng, (2, S, KV * g, hd), "bfloat16", cuda)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=causal), (q, k, v), dout)
+    out = flash_attention(q, k, v, causal=causal)
+    assert out.requires_grad and out.grad_fn is not None
+    monkeypatch.setattr(ops, "flash_attention_ref", lambda *a, **kw: pytest.fail("the backward called the plain version"))
+    reset_launch_counts()
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert launch_counts()["flash_attention"] == 0
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        _close(a, b, 3e-2)
+        assert float((a.float() - b.float()).abs().max()) <= 1e-2 * float(b.float().abs().max())
+
+
+def _train_pair(arch, monkeypatch):
+    """Reduced ``arch``: the same random weights on the CPU and the card,
+    leaves requiring grad, and one seeded batch (2 x 32) on each. A
+    capacity MoE's routes flip under bf16 noise (a flipped token moves the
+    gradient sums far more than rounding does), so the card's run takes
+    the CPU run's expert choices, call by call (forward and remat
+    recompute), with gates from its own router (``moe_ffn``'s forced
+    routing)."""
+    spec = ModelSpec(get_reduced(arch))
+    params = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = spec.smoke_batch(torch.Generator().manual_seed(1), batch=2, seq=32, device="cpu")
+    route, recorded = layers.moe_route, []
+
+    def record(m, xt, w_router):
+        out = route(m, xt, w_router)
+        recorded.append(out[3].cpu())
+        return out
+
+    def force(m, xt, w_router, choices=iter(recorded)):
+        logits, probs, _, _ = route(m, xt, w_router)
+        idx = next(choices).to(xt.device)
+        gates = probs.gather(-1, idx)
+        return logits, probs, gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), idx
+
+    out = {}
+    for dev, wrap in (("cpu", record), ("cuda", force)):
+        monkeypatch.setattr(layers, "moe_route", wrap)
+        p = {n: t.detach().to(dev).clone().requires_grad_(True) for n, t in params.items()}
+        b = {k: t.to(dev) for k, t in batch.items()}
+        loss, _ = spec.loss(p, b)
+        loss.backward()
+        out[dev] = (float(loss.detach()), {n: t.grad.float().cpu() for n, t in p.items()})
+    return out
+
+
+# bf16 noise between the card and the CPU: cuBLAS and the CPU's GEMMs sum in
+# other orders and the flash kernel rounds the softmax weights to bf16
+# before P.V. Each gradient leaf within this fraction of its max |value|
+# (measured on an H100: at most 0.048, zamba2's A_log and rwkv6's mu, and
+# 0.013-0.019 on qwen3's wq, wk, wv); the loss within this relative gap
+# (measured at most 6.4e-5)
+GPU_GRAD_TOL = 0.1
+GPU_LOSS_RTOL = 5e-4
+
+
+def test_attention_grads_on_the_card(cuda, monkeypatch):
+    """ROADMAP.md §3 fault 1, pinned: the grads of the attention projections
+    of reduced qwen3-1.7b on the card (flash kernel, its backward) are the
+    CPU plain path's. Without a gradient through attention, wq's and wk's
+    would be exactly 0."""
+    out = _train_pair("qwen3-1.7b", monkeypatch)
+    for name in ("blocks.wq", "blocks.wk", "blocks.wv"):
+        got, want = out["cuda"][1][name], out["cpu"][1][name]
+        scale = float(want.abs().max())
+        assert scale > 0 and float(got.abs().max()) > 0, name
+        err = float((got - want).abs().max())
+        print(f"{name}: max |card - cpu| {err:.3g} of max {scale:.3g} ({err / scale:.3g})")
+        assert err <= GPU_GRAD_TOL * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "smollm-135m", "qwen2.5-32b", "mistral-large-123b", "olmoe-1b-7b",
+                                  "llama4-scout-17b-a16e", "llava-next-34b", "whisper-base", "rwkv6-3b", "zamba2-7b"])
+def test_loss_and_grads_on_the_card(cuda, arch, monkeypatch):
+    """The loss and every gradient leaf of each reduced arch on the card
+    against the CPU, same weights and batch (GPU_LOSS_RTOL, GPU_GRAD_TOL)."""
+    out = _train_pair(arch, monkeypatch)
+    (loss, grads), (cpu_loss, cpu_grads) = out["cuda"], out["cpu"]
+    print(f"{arch}: loss {loss:.6f} cpu {cpu_loss:.6f} ({abs(loss - cpu_loss) / cpu_loss:.3g})")
+    assert abs(loss - cpu_loss) <= GPU_LOSS_RTOL * cpu_loss
+    worst = (0.0, "")
+    for n, g in grads.items():
+        assert torch.isfinite(g).all(), n
+        scale = float(cpu_grads[n].abs().max())
+        rel = float((g - cpu_grads[n]).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, (rel, n))
+        assert rel <= GPU_GRAD_TOL or scale == 0.0, (n, rel)
+    print(f"{arch}: worst gradient leaf {worst[1]} at {worst[0]:.3g} of its max")
+
+
+def test_train_launcher_crash_and_resume_on_the_card(cuda, tmp_path):
+    """``launch.train --device cuda``: a run that crashes at step 3
+    (``--fail-at``, exit 42) and resumes ends where an uninterrupted run
+    ends, bit for bit."""
+    from test_torch_train_drill import launcher_drill
+
+    launcher_drill(tmp_path, "cuda", extra=["--compress"])

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of repro_torch (the
-encoder-decoder, RWKV6, Mamba2 and step-builder modules among them), and
-chip_smoke.py, pulls in neither JAX nor the JAX package, and builds nothing."""
+encoder-decoder, RWKV6, Mamba2 and step-builder modules, and the training
+path's optimizer, data, checkpoint and launcher modules among them), and
+chip_smoke.py, pulls in neither JAX nor the JAX package nor ml_dtypes (the
+card's machine has none), and builds nothing."""
 import os
 import subprocess
 import sys
@@ -15,9 +17,12 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
+             or m.startswith("repro.") or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 new = ["repro_torch.models.encdec", "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
-       "repro_torch.launch.steps"]
+       "repro_torch.launch.steps", "repro_torch.optim", "repro_torch.optim.adamw",
+       "repro_torch.optim.grad_compress", "repro_torch.optim.schedules", "repro_torch.data.pipeline",
+       "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train"]
 assert all(name in names for name in new), names
 print(len(names), bad)
 """

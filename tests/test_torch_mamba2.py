@@ -31,7 +31,7 @@ from repro.models import mamba2 as jax_mamba2
 from repro_torch import bridge, configs
 from repro_torch.launch.steps import decode_cache
 from repro_torch.models import mamba2
-from repro_torch.models.common import layer_params
+from repro_torch.models.common import layer_stack
 from test_torch_engine_cases import jax_exact
 from test_torch_family_cases import (LOGIT_TOL, STATE_TOL, assert_greedy_matches, bf16_ulps, f32,  # noqa: F401
                                      jax_flash_prefill, jax_forward, jax_into_cache, jax_prefill,
@@ -121,7 +121,7 @@ def test_mamba_mix_matches_jax(S):
     pair = make_pair(ARCH)
     s, d = pair.cfg.ssm, pair.cfg.d_model
     jp = jax.tree_util.tree_map(lambda t: t[0], pair.jparams["mamba"])
-    p = layer_params(pair.params, 0, "mamba")
+    p = layer_stack(pair.params, "mamba")[0]
     rng = np.random.default_rng(S)
     ch = s.heads * s.head_dim + 2 * s.state_dim
     jx, jprev = (jnp.asarray(rng.normal(size=sh).astype(np.float32), jnp.bfloat16)

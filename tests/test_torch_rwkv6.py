@@ -17,7 +17,7 @@ from repro.models import rwkv6 as jax_rwkv6
 from repro_torch import bridge
 from repro_torch.launch.steps import decode_cache
 from repro_torch.models import rwkv6
-from repro_torch.models.common import layer_params
+from repro_torch.models.common import layer_stack
 from test_torch_engine_cases import jax_exact
 from test_torch_family_cases import (LOGIT_TOL, assert_cache_close, assert_greedy_matches, f32,  # noqa: F401
                                      jax_flash_prefill, jax_into_cache, jax_prefill, jax_forward,
@@ -75,7 +75,7 @@ def test_wkv_chunked_equals_recurrence(S, chunk):
 
 def _layer0(pair):
     jp = jax.tree_util.tree_map(lambda t: t[0], pair.jparams["blocks"])
-    return jp, layer_params(pair.params, 0)
+    return jp, layer_stack(pair.params)[0]
 
 
 def _bf16(rng, shape):
