@@ -75,6 +75,19 @@ Phases (any failure exits non-zero; so does a missing card):
      params equal to bf16(master) bit for bit after every step. Prints step
      ms, tokens/s, peak memory, the model-FLOP share and a profiled step's
      device busy and idle share.
+  8. distribution — a one-rank NCCL process group (a free local port) and
+     ``launch/mesh.py::make_host_mesh("cuda")``, a 1 x 1 data x model mesh.
+     The state of phase 7, drawn again from its seed, is placed on the mesh
+     by ``launch/steps.py::shard_train_state``: the card's allocation grows
+     by the dry run's per-device state bytes with the residual
+     (``launch/dryrun.py::cell_bytes`` on 1 x 1) within DRYRUN_MEM_RTOL.
+     ``build_train_step(mesh=)``, the sharded step (one gather of the
+     params, this rank's rows, the fp32 gradient summed over the data
+     ranks, whole-leaf int8 scale and a norm that counts each element once),
+     runs phase 7's step 0: its loss, grad norm and every updated bf16
+     parameter equal phase 7's bit for bit; then one more step, timed. Flash
+     launches exactly 224 a step, all tensor-core. Prints both steps' times,
+     the peak memory and the dry run's bytes beside the card's.
 
 The line before the last is the card as nvidia-smi names it, the one
 before that a JSON object with one entry per kernel, and the last line
@@ -142,6 +155,10 @@ TRAIN_GNORM_RTOL = 1e-4
 # attention is off by 1)
 TRAIN_ATTN_LEAVES = ("blocks.wq", "blocks.wk", "blocks.wv")
 TRAIN_LEAF_TOL = 2e-2
+# phase 8: the dry run's per-device state bytes against the card's
+# allocation (the caching allocator rounds each block up to 512 bytes)
+DRYRUN_MEM_RTOL = 5e-3
+SHARDED_PATH = f"train sharded 1x1 {TRAIN_ARCH}"
 # flash attention at the train shape (forward and backward), and its
 # backward at phase 6's shapes too
 FLASH_TRAIN_SHAPE = ("qwen3-1.7b train", 1, 4096, 4096, 16, 8, 128, True)
@@ -1063,7 +1080,8 @@ def check_flash_backward():
 
 def train(card):
     """Phase 7 (b): full-width qwen3-1.7b through ``build_train_step``.
-    Returns (flash launches of the training run, its routes)."""
+    Returns (flash launches of the training run, its routes, step 0: its
+    metrics and the updated bf16 params on the host)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1144,6 +1162,8 @@ def train(card):
         if not bits_equal_master():
             raise AssertionError(f"step {i}: params are not bf16(master)")
         if i == 0:
+            step0 = {"metrics": {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()},
+                     "params": {n: p.detach().to("cpu") for n, p in state["params"].items()}}
             dl, dg = abs(m["loss"] - ref_loss) / ref_loss, abs(m["grad_norm"] - ref_gnorm) / ref_gnorm
             print(f"  plain-attention step 0: loss {ref_loss:.5f} grad_norm {ref_gnorm:.5f}; relative gap loss "
                   f"{dl:.3g} (tol {TRAIN_LOSS_RTOL}), grad_norm {dg:.3g} (tol {TRAIN_GNORM_RTOL})")
@@ -1204,6 +1224,109 @@ def train(card):
           f"master/mu/nu 24.4, gradient sum 8.1, residual 8.1, bf16 .grad 4.1, fp32 logits ~2.5 a copy)")
     for name, ms in sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]:
         print(f"    {ms:9.3f} ms  {name[:90]}")
+    return counts, routes, step0
+
+
+def digest(params) -> int:
+    """A checksum of bf16 params on the host: the sum of their 16-bit
+    patterns, each weighted by its leaf's place in sorted order."""
+    return sum((i + 1) * int(params[n].view(torch.int16).sum(dtype=torch.int64)) for i, n in enumerate(sorted(params)))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def distribution(card, step0):
+    """Phase 8: phase 7's step 0 through the sharded step on a 1 x 1 mesh
+    over a one-rank NCCL group. Returns (its kernel launches, routes)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import OptimConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch.dryrun import cell_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, shard_train_state
+    from repro_torch.models.api import ModelSpec
+    from repro_torch.optim.adamw import adamw_init
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_ARCH)
+    spec = ModelSpec(cfg)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    optim = OptimConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS + 1)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh("cuda")
+        # phase 7's state from its seed: the params drawn on the card, the
+        # rest built on the host, so that the card holds only what
+        # shard_train_state places there
+        params = {n: p.cpu() for n, p in spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev).items()}
+        host = {"params": params, "opt": adamw_init(params),
+                "residual": {n: torch.zeros(p.shape, dtype=torch.float32) for n, p in params.items()}}
+        torch.cuda.empty_cache()
+        dry = cell_bytes(TRAIN_ARCH, "train_4k", {"data": 1, "model": 1})["bytes"]
+        want = dry["state"] + dry["residual"]
+        before = torch.cuda.memory_allocated()
+        state = shard_train_state(spec, host, mesh)
+        grown = torch.cuda.memory_allocated() - before
+        del host, params
+        gap = abs(grown - want) / want
+        print(f"  dry run, {TRAIN_ARCH} on 1 x 1: state {dry['state'] / 1e9:.3f} GB + residual {dry['residual'] / 1e9:.3f}"
+              f" GB = {want / 1e9:.3f} GB a device; the card's allocation grew {grown / 1e9:.3f} GB over "
+              f"shard_train_state: gap {gap:.2e} (tol {DRYRUN_MEM_RTOL})")
+        if gap > DRYRUN_MEM_RTOL:
+            raise AssertionError("the dry run's state bytes are not the card's allocation")
+        step = build_train_step(spec, optim, TRAIN_ACCUM, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times = []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(i).items()}
+            before_flash = launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            m = {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
+            n_flash = launch_counts()["flash_attention"] - before_flash
+            print(f"  sharded step {i}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f} step {int(m['step'])}; "
+                  f"{times[-1] * 1e3:.1f} ms; flash launches {n_flash}")
+            if n_flash != TRAIN_FLASH_PER_STEP:
+                raise AssertionError(f"sharded step {i}: {n_flash} flash launches, want {TRAIN_FLASH_PER_STEP}")
+            if i == 0:
+                got = {n: p.to_local().detach().to("cpu") for n, p in state["params"].items()}
+                want_m = step0["metrics"]
+                same = {k: m[k] == want_m[k] for k in ("loss", "grad_norm", "lr", "step")}
+                leaves_equal = {n: torch.equal(got[n], step0["params"][n]) for n in got}
+                print(f"  phase 7 step 0: loss {want_m['loss']:.6f} grad_norm {want_m['grad_norm']:.6f}; "
+                      f"bit-equal {same}; bf16 params bit-equal in {sum(leaves_equal.values())} of {len(got)} leaves; "
+                      f"checksum {digest(got)} (phase 7: {digest(step0['params'])})")
+                if not all(same.values()) or not all(leaves_equal.values()):
+                    for n, eq in leaves_equal.items():
+                        if not eq:
+                            d = (got[n].float() - step0["params"][n].float()).abs()
+                            print(f"    {n}: {int((d > 0).sum())} elements differ, max {float(d.max()):.3g}")
+                    raise AssertionError("the sharded step on 1 x 1 is not phase 7's step 0 bit for bit")
+                del got
+        peak = torch.cuda.max_memory_allocated()
+        counts, routes = launch_counts(), route_counts()
+        want_counts = {name: 0 for name in counts}
+        want_counts["flash_attention"] = 2 * TRAIN_FLASH_PER_STEP
+        if counts != want_counts or routes != {"tensor_core": want_counts["flash_attention"], "cuda_core": 0}:
+            raise AssertionError(f"sharded launches {counts}, routes {routes}; want {want_counts}, all tensor-core")
+        print(f"  sharded train step (step 1, untraced) {times[1] * 1e3:.1f} ms, step 0 {times[0] * 1e3:.1f} ms "
+              f"(its first collectives included); {TRAIN_SEQ * TRAIN_BATCH / times[1]:.0f} tokens/s; peak memory "
+              f"{peak / 1e9:.2f} GB (max_memory_allocated) — on {card}")
+        del state
+    finally:
+        dist.destroy_process_group()
     return counts, routes
 
 
@@ -1247,7 +1370,11 @@ def main() -> int:
             torch.cuda.empty_cache()
     with phase("training"):
         flash_backward = check_flash_backward()
-        counts_train, routes_train = train(card)
+        counts_train, routes_train, step0 = train(card)
+    torch.cuda.empty_cache()
+    with phase("distribution"):
+        counts_sharded, routes_sharded = distribution(card, step0)
+    del step0
     torch.cuda.empty_cache()
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
@@ -1273,14 +1400,15 @@ def main() -> int:
                            "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in extra]
         entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name],
                                      **{arch: c[name] for arch, c in counts_family.items()},
-                                     f"train {TRAIN_ARCH}": counts_train[name]}
+                                     f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name]}
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
     kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS
     kernels[2]["ulps_group_size_1"] = rows_g1["kv_log_append"]["ulps"]
     kernels[3]["tensor_core_launches"] = routes["tensor_core"]
     kernels[3]["tensor_core_launches_by_path"] = {full.name: routes["tensor_core"], moe_full.name: routes_moe["tensor_core"],
-                                                  f"train {TRAIN_ARCH}": routes_train["tensor_core"]}
+                                                  f"train {TRAIN_ARCH}": routes_train["tensor_core"],
+                                                  SHARDED_PATH: routes_sharded["tensor_core"]}
     kernels[3]["launches_per_train_step"] = TRAIN_FLASH_PER_STEP
     kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
                                "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],

@@ -11,6 +11,14 @@
     step in the structure of ``target``, each tensor on ``device`` (default:
     where the target's lies), with its dtype, shape and ``requires_grad``.
 
+Elastic, across meshes (JAX's ``restore(shardings=)``): ``save`` of a
+sharded state (DTensor leaves; every rank calls it) gathers each leaf and
+writes the WHOLE arrays from global rank 0, in the same layout, so a
+sharded checkpoint is an unsharded one. ``restore(..., mesh=, specs=)``
+places each leaf named by a parameter of ``specs`` (``param_specs``; the
+params, mu, nu, master and residual) on ``mesh`` as a DTensor, this rank's
+shard only; the mesh may differ from the one saved on.
+
 The layout is JAX's: leaves in JAX's flatten order (dict keys sorted, tuple
 fields in order; a flat dotted-name dict sorts as the nested tree), bf16
 stored as a uint16 view with its true dtype in the manifest, the step of an
@@ -28,6 +36,9 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding
 
 State = Any
 
@@ -82,10 +93,19 @@ class Checkpointer:
 
     # ---- save ----
     def save(self, step: int, state: State, extra: Optional[Dict] = None) -> None:
+        """Writes ``state``; DTensor leaves are gathered whole (a collective:
+        every rank of their mesh calls ``save``), and only global rank 0
+        writes."""
         pairs = list(_flatten(state))
         names = [name for name, _ in pairs]
         dtypes = [_dtype_name(leaf) for _, leaf in pairs]
-        host = [_to_host(leaf) for _, leaf in pairs]  # copied now, before the caller's next update
+        writer = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+        host = []
+        for _, leaf in pairs:  # copied now, before the caller's next update
+            whole = sharding.gather(leaf) if isinstance(leaf, torch.Tensor) else leaf
+            host.append(_to_host(whole) if writer else None)
+        if not writer:
+            return
         self.wait()
         if self.async_save:
             self._thread = threading.Thread(target=self._write_caught, args=(step, host, names, dtypes, extra))
@@ -134,8 +154,12 @@ class Checkpointer:
         steps = self.all_steps()
         return max(steps) if steps else None
 
-    def restore(self, target: State, step: Optional[int] = None, device=None):
-        """Returns (state in ``target``'s structure, extra, step)."""
+    def restore(self, target: State, step: Optional[int] = None, device=None, mesh=None,
+                specs: Optional[Dict[str, Any]] = None):
+        """Returns (state in ``target``'s structure, extra, step). With
+        ``mesh``, each leaf whose name ends in a parameter of ``specs``
+        becomes a DTensor on ``mesh`` by its spec, and the other tensors go
+        to the mesh's device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -155,6 +179,13 @@ class Checkpointer:
             if t.dtype != want.dtype or tuple(t.shape) != tuple(want.shape):
                 raise ValueError(f"{name}: checkpoint has {t.dtype} {tuple(t.shape)}, target "
                                  f"{want.dtype} {tuple(want.shape)}")
-            t = t.to(want.device if device is None else device)
+            param = name.rsplit("/", 1)[-1]
+            if mesh is not None and specs is not None and param in specs:
+                leaves.append(sharding.distribute(t, mesh, specs[param]))
+                continue
+            if mesh is not None:
+                t = t.to(sharding.mesh_device(mesh))
+            else:
+                t = t.to(want.device if device is None else device)
             leaves.append(t.requires_grad_(want.requires_grad))
         return _unflatten(target, iter(leaves)), manifest["extra"], step

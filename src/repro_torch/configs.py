@@ -1,8 +1,9 @@
 """Model configs for the PyTorch port.
 
 A copy of ``ModelConfig`` (with the ``MoEConfig`` / ``SSMConfig`` field
-types it names), of ``OptimConfig`` and of the registry entries the port
-serves and trains: the port
+types it names), of ``OptimConfig``, of the registry entries the port
+serves and trains, and of the dry run's shape grid (``ShapeConfig``,
+``SHAPES``, ``shape_applicable``): the port
 imports nothing of ``repro``, not even its framework-free modules, so it
 keeps its own copy. Field names, defaults and values match the JAX package
 field by field (``tests/test_torch_models.py`` checks it).
@@ -534,6 +535,32 @@ def get_reduced(arch: str) -> ModelConfig:
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch][1]()
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell. kind selects which step is lowered:
+    train -> train_step, prefill -> prefill, decode -> serve_step."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Mapping[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, per DESIGN.md §Shape skips."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k needs sub-quadratic attention (pure full-attention arch)"
+    return True, ""
 
 
 @dataclass(frozen=True)

@@ -163,3 +163,14 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def plain(t: torch.Tensor, op: str) -> bool:
+    """How a wrapper chooses by ``t``'s device type: True on ``cpu`` and
+    ``meta`` (the plain version: the CPU tests, and the dry run, which counts
+    the work with no data), False on ``cuda`` (the kernel, always). Any other
+    device raises."""
+    kind = t.device.type
+    if kind not in ("cpu", "meta", "cuda"):
+        raise ValueError(f"{op}: no version for tensors on {t.device}")
+    return kind != "cuda"

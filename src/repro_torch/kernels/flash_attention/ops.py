@@ -47,7 +47,7 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """q (B, S, H, hd), k/v (B, S_kv, KV, hd) -> (B, S, H, hd) in q's dtype.
     Differentiable: on a CUDA tensor the kernel's output carries an autograd
     node whose backward is ``flash_attention_bwd``."""
-    if q.device.type == "cpu":
+    if _build.plain(q, "flash_attention"):
         return flash_attention_ref(q, k, v, causal=causal)
     return _FlashAttention.apply(q, k, v, causal)
 

@@ -63,7 +63,7 @@ def _launch(log_k, log_v, log_meta, q_out, q, k, v, bq, bk, bv, q_gain, k_gain, 
 def kv_log_append(log_k, log_v, log_meta, tail: int, k_new, v_new, req_ids, positions) -> int:
     """Append B tokens' K/V (all L layers of ``k_new``) at ``tail``; write
     their (request, position) meta rows. Returns ``tail + B``."""
-    if log_k.device.type == "cpu":
+    if _build.plain(log_k, "kv_log_append"):
         return kv_log_append_ref(log_k, log_v, log_meta, tail, k_new, v_new, req_ids, positions)
     L, S, KV, hd = log_k.shape
     B = k_new.shape[1]
@@ -101,7 +101,7 @@ def qkv_log_append(
     meta_positions (B,) int32 (-1 on padded rows, which are written too, so
     the tail advances by B). Returns (q (B, H, hd) ready for
     ``paged_decode_attention``, tail + B)."""
-    if q.device.type == "cpu":
+    if _build.plain(q, "qkv_log_append"):
         return qkv_log_append_ref(cfg, p, q, k, v, positions, log_k, log_v, log_meta, tail, req_ids, meta_positions)
     S, KV, hd = log_k.shape
     B, H = q.shape[0], cfg.n_heads

@@ -76,7 +76,7 @@ def _compact(a_k, a_v, b_k, b_v, log_k, log_v, log_meta, targets) -> None:
 
 def log_compact(k_pages, v_pages, log_k, log_v, log_meta, flush_targets) -> None:
     """Coalesce the log into one page pool, in place (see ``ref.py``)."""
-    if k_pages.device.type == "cpu":
+    if _build.plain(k_pages, "log_compact"):
         return log_compact_ref(k_pages, v_pages, log_k, log_v, log_meta, flush_targets)
     return _compact(k_pages, v_pages, None, None, log_k, log_v, log_meta, flush_targets)
 
@@ -85,7 +85,7 @@ def log_compact_tiers(fast_k, fast_v, host_k, host_v, log_k, log_v, log_meta, ta
     """Coalesce the log into both tiers in one pass, in place. targets:
     (F, 4) int32 (request, logical page, fast slot or -1, host slot or -1);
     the slots of each tier distinct across rows."""
-    if fast_k.device.type == "cpu":
+    if _build.plain(fast_k, "log_compact_tiers"):
         return log_compact_tiers_ref(fast_k, fast_v, host_k, host_v, log_k, log_v, log_meta, targets)
     return _compact(fast_k, fast_v, host_k, host_v, log_k, log_v, log_meta, targets)
 

@@ -151,7 +151,7 @@ def paged_decode_attention(
     each batch row serves — log entries are owned by request id, not batch
     position.
     """
-    if q.device.type == "cpu":
+    if _build.plain(q, "paged_decode_attention"):
         return paged_decode_attention_ref(
             q, k_pages, v_pages, page_table, lengths, log_k, log_v, log_meta,
             page_lengths=page_lengths, req_ids=req_ids,

@@ -1,0 +1,243 @@
+"""Dry run of every (arch x shape x mesh) cell on the meta device (port of
+``repro/launch/dryrun.py``).
+
+JAX lowers and compiles each cell for a 256/512-chip mesh and reads XLA's
+cost and memory analyses and the partitioned HLO. torch has no HLO (the
+HLO walk stays JAX's), so this counts from the layout instead, with no
+process group and no data:
+
+  * skipped and the reason (``shape_applicable``), or ok / the error;
+  * the mesh and ``n_devices``; a train cell's ``accum_steps`` (JAX's
+    loop) and the rows one device computes a microbatch;
+  * per-device bytes of params, opt (mu, nu, master, the int32 step) and
+    the error-feedback residual by ``param_specs``; of the step's inputs by
+    ``batch_spec``, and of a decode cell's cache by ``cache_pspec``, both
+    through ``filter_spec_for_mesh``;
+  * the bytes the port's step holds beyond its state: the gathered bf16
+    params (every cell: the port gathers the whole model onto each device)
+    and, in a train cell, the whole fp32 gradient sum; whether state +
+    inputs + cache + those fit in ``--device-bytes`` (default 80e9, one
+    NVIDIA H100 80GB HBM3). Activations are not counted: a cell that does
+    not fit here does not fit at all, one that fits may still not;
+  * per-device FLOPs of one step: ``torch.utils.flop_counter.FlopCounterMode``
+    over one microbatch of the device's rows on meta (a train cell: loss,
+    backward and the remat recompute; the MoE routes over the global
+    microbatch as in the sharded step), times ``accum_steps``;
+  * per-device collective bytes of the port's step, from the layout: one
+    gather of the params (bytes received) and, in a train cell, one ring
+    all-reduce of the fp32 gradient sum over the data-parallel ranks.
+
+The port has a sharded train step only; a prefill or decode cell counts
+the port's unsharded step on the rows one device would take.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+from pathlib import Path
+from typing import Any, Dict, Mapping
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import ARCH_IDS, SHAPES, OptimConfig, ShapeConfig, get_config, shape_applicable
+from repro_torch.distributed.groups import ShapeOnlyRows
+from repro_torch.distributed.sharding import batch_spec, filter_spec_for_mesh, local_bytes, local_shape, param_specs
+from repro_torch.launch.mesh import dp_size, production_mesh_shape
+from repro_torch.launch.steps import abstract_train_state, build_prefill_step, build_serve_step, build_train_step
+from repro_torch.models import layers
+from repro_torch.models.api import ModelSpec
+
+DEVICE_NAME = "NVIDIA H100 80GB HBM3"
+DEVICE_BYTES = 80e9
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def accum_steps(cfg, shape, mesh: Mapping[str, int]) -> int:
+    """JAX's microbatch count: the config's per-shard microbatch over every
+    data-parallel rank, lowered until it splits the batch evenly."""
+    mb = cfg.microbatch.get(shape.name, 8)
+    dp = dp_size(mesh)
+    accum = max(1, shape.global_batch // max(mb * dp, 1))
+    while shape.global_batch % accum or (shape.global_batch // accum) % dp:
+        accum -= 1
+    return accum
+
+
+def _batch_bytes(t: torch.Tensor, mesh) -> int:
+    bspec = batch_spec(mesh)
+    spec = filter_spec_for_mesh((bspec[0],) + (None,) * (t.dim() - 1), mesh, t.shape)
+    return local_bytes(t.shape, t.element_size(), spec, mesh)
+
+
+def _device_rows(batch: int, mesh) -> int:
+    """The rows of a ``batch`` one device computes: its share over the
+    data-parallel axes, or all of them where those do not divide it."""
+    return local_shape((batch,), filter_spec_for_mesh(batch_spec(mesh), mesh, (batch,)), mesh)[0]
+
+
+def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int]) -> Dict[str, Any]:
+    """The byte columns of one cell on the mesh ``{axis: size}`` (no data)."""
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    spec = ModelSpec(cfg)
+    specs = param_specs(spec.schema(), mesh)
+    state = abstract_train_state(spec, compress=True)
+    per = lambda leaves: sum(local_bytes(t.shape, t.element_size(), specs[n], mesh) for n, t in leaves.items())  # noqa: E731
+    opt = state["opt"]
+    params = per(state["params"])
+    whole_params = sum(_nbytes(t) for t in state["params"].values())
+    rec: Dict[str, Any] = {"params": params, "residual": per(state["residual"])}
+    inputs = spec.input_specs(shape)
+    cache = inputs.pop("cache", None)
+    rec["inputs"] = sum(_batch_bytes(t, mesh) if t.dim() else _nbytes(t) for t in inputs.values())
+    extra = {"gathered_params": whole_params}
+    if shape.kind == "train":
+        rec["opt"] = per(opt.mu) + per(opt.nu) + per(opt.master) + _nbytes(opt.step)
+        extra["grad_sum"] = sum(_nbytes(t) for t in opt.master.values())
+    else:
+        rec["opt"] = 0
+    if cache is not None:
+        cspec = spec.cache_pspec()
+        rec["cache"] = sum(local_bytes(t.shape, t.element_size(), filter_spec_for_mesh(cspec[k], mesh, t.shape), mesh)
+                           for k, t in cache.items())
+    rec["state"] = rec["params"] + rec["opt"]
+    dp = dp_size(mesh)
+    collectives = {"param_gather": whole_params - params}
+    if shape.kind == "train":
+        collectives["grad_all_reduce"] = int(2 * (dp - 1) / dp * extra["grad_sum"])
+    return {"bytes": rec, "port_step_bytes": extra, "collective_bytes": collectives,
+            "total_bytes": rec["state"] + rec["inputs"] + rec.get("cache", 0) + sum(extra.values())}
+
+
+def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") -> Dict[str, Any]:
+    """Per-device FLOPs of one step of ``cfg`` at ``shape``: one microbatch
+    of the device's rows through the step's model work under
+    ``FlopCounterMode``, times the microbatch count. ``device``: meta (no
+    data), or a real device, to count the same work computed."""
+    spec = ModelSpec(cfg)
+    dev = torch.device(device)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(0)
+    params = spec.abstract_params() if gen is None else spec.init(gen, device=dev)
+    for p in params.values():
+        p.requires_grad_(shape.kind == "train")
+    inputs = spec.input_specs(shape)
+
+    def rows_of(t: torch.Tensor, rows: int) -> torch.Tensor:
+        size = (rows, *t.shape[1:])
+        if gen is None:
+            return torch.empty(size, dtype=t.dtype, device=dev)
+        if t.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab, size, generator=gen, dtype=t.dtype, device=dev)
+        return torch.randn(size, generator=gen, device=dev).to(t.dtype)
+
+    counter = FlopCounterMode(display=False)
+    accum = 1
+    if shape.kind == "train":
+        accum = accum_steps(cfg, shape, mesh)
+        rows = shape.global_batch // accum // dp_size(mesh)
+        batch = {k: rows_of(t, rows) for k, t in inputs.items()}
+        step = build_train_step(spec, OptimConfig(), accum_steps=1)
+        with layers.data_parallel_rows(ShapeOnlyRows(dp_size(mesh)) if dev.type == "meta" else None), counter:
+            step.grads_and_loss(params, batch)
+    elif shape.kind == "prefill":
+        rows = _device_rows(shape.global_batch, mesh)
+        batch = {k: rows_of(t, rows) for k, t in inputs.items()}
+        with torch.no_grad(), counter:
+            build_prefill_step(spec)(params, batch["tokens"], batch.get("frontend"))
+    else:
+        rows = _device_rows(shape.global_batch, mesh)
+        cache = spec.init_cache(rows, shape.seq_len, device=dev)
+        with torch.no_grad(), counter:
+            build_serve_step(spec)(params, cache, rows_of(inputs["tokens"], rows), shape.seq_len - 1)
+    return {"flops": counter.get_total_flops() * accum, "rows_per_device": rows,
+            **({"accum_steps": accum} if shape.kind == "train" else {})}
+
+
+def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float = DEVICE_BYTES) -> Dict[str, Any]:
+    mesh = production_mesh_shape(multi_pod=(mesh_kind == "multi"))
+    t0 = time.time()
+    rec: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": mesh, "n_devices": math.prod(mesh.values()),
+                           **cell_bytes(arch, shape_name, mesh)}
+    rec["device"] = DEVICE_NAME if device_bytes == DEVICE_BYTES else "--device-bytes"
+    rec["device_bytes"] = device_bytes
+    rec["fits"] = rec["total_bytes"] <= device_bytes
+    rec["fits_counts"] = "state + inputs + cache + gathered params + fp32 gradient sum; not activations"
+    rec.update(cell_flops(get_config(arch), SHAPES[shape_name], mesh))
+    rec["count_s"] = round(time.time() - t0, 2)
+    return rec
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: Path, force=False,
+             device_bytes: float = DEVICE_BYTES) -> Dict:
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    path = outdir / mesh_kind / f"{arch}__{shape_name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists() and not force:
+        return json.loads(path.read_text())
+    applicable, why = shape_applicable(cfg, shape)
+    if not applicable:
+        rec = {"arch": arch, "shape": shape_name, "mesh_kind": mesh_kind, "skipped": True, "reason": why}
+        path.write_text(json.dumps(rec, indent=2))
+        return rec
+    try:
+        rec = count_cell(arch, shape_name, mesh_kind, device_bytes)
+        rec["ok"] = True
+    except Exception as e:  # a failed cell is recorded and the run goes on, as in JAX's dry run
+        rec = {"arch": arch, "shape": shape_name, "ok": False, "error": f"{type(e).__name__}: {e}"}
+    rec["mesh_kind"] = mesh_kind
+    path.write_text(json.dumps(rec, indent=2))
+    return rec
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_IDS))
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default="artifacts/dryrun_torch")
+    ap.add_argument("--device-bytes", type=float, default=DEVICE_BYTES,
+                    help=f"memory of one device (default {DEVICE_BYTES:.0e}: one {DEVICE_NAME})")
+    args = ap.parse_args()
+    outdir = Path(args.out)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    if args.all:
+        cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape, or --all, required")
+        cells = [(args.arch, args.shape)]
+
+    n_ok = n_fail = n_skip = 0
+    for mesh_kind in meshes:
+        for a, s in cells:
+            t0 = time.time()
+            rec = run_cell(a, s, mesh_kind, outdir, force=args.force, device_bytes=args.device_bytes)
+            dt = time.time() - t0
+            if rec.get("skipped"):
+                tag, n_skip = "SKIP", n_skip + 1
+            elif rec.get("ok"):
+                tag, n_ok = "OK", n_ok + 1
+            else:
+                tag, n_fail = "FAIL", n_fail + 1
+            detail = rec.get("error", "")[:120]
+            if rec.get("ok"):
+                detail = (f"state/dev {rec['bytes']['state'] / 1e9:.2f} GB, total {rec['total_bytes'] / 1e9:.2f} GB "
+                          f"({'fits' if rec['fits'] else 'does not fit'}), {rec['flops'] / 1e12:.1f} TFLOP/dev")
+            print(f"[{tag}] {mesh_kind:6s} {a:24s} {s:12s} {dt:6.1f}s {detail}", flush=True)
+    print(f"done: ok={n_ok} fail={n_fail} skip={n_skip}")
+
+
+if __name__ == "__main__":
+    main()

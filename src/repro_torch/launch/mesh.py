@@ -1,0 +1,73 @@
+"""Production mesh construction (port of ``repro/launch/mesh.py``), on
+``torch.distributed.device_mesh.init_device_mesh``.
+
+Single pod : (data=16, model=16)            = 256 devices
+Multi-pod  : (pod=2, data=16, model=16)     = 512 devices
+The "pod" axis carries only data-parallel gradient reduction; "model"
+carries TP/EP/sequence-sharded KV.
+
+Functions, not module-level meshes: building one needs the process group
+(``torch.distributed.init_process_group``, which the caller starts with its
+address, world size and rank). The dry run needs none: it reads the
+shapes, as plain data, from ``PRODUCTION_MESHES``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+from repro_torch.distributed.sharding import mesh_coordinate, mesh_shape
+
+DP_AXES = ("pod", "data")
+
+# mesh kind -> (shape, axis names)
+PRODUCTION_MESHES: Dict[str, Tuple[Tuple[int, ...], Tuple[str, ...]]] = {
+    "single": ((16, 16), ("data", "model")),
+    "multi": ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def production_mesh_shape(multi_pod: bool = False) -> Dict[str, int]:
+    """{axis name: size} of the production mesh, with no process group."""
+    shape, axes = PRODUCTION_MESHES["multi" if multi_pod else "single"]
+    return dict(zip(axes, shape))
+
+
+def make_production_mesh(multi_pod: bool = False, device_type: str = "cuda"):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION_MESHES["multi" if multi_pod else "single"]
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(device_type: str = "cuda"):
+    """Degenerate 1x1 mesh: the sharded step through the same code on one
+    device."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (1, 1), mesh_dim_names=("data", "model"))
+
+
+def dp_size(mesh) -> int:
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in DP_AXES if a in shape)
+
+
+def dp_index(mesh) -> int:
+    """This rank's position among the data-parallel ranks: its coordinate
+    on ("pod", "data"), pod major (the order of ``batch_spec``'s rows)."""
+    shape, coord = mesh_shape(mesh), mesh_coordinate(mesh)
+    index = 0
+    for a in DP_AXES:
+        if a in shape:
+            index = index * shape[a] + coord[a]
+    return index
+
+
+def dp_group(mesh):
+    """The process group of this rank's data-parallel ranks (the same
+    "model" coordinate), its group ranks in ``dp_index`` order."""
+    axes = tuple(a for a in DP_AXES if a in mesh_shape(mesh))
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()

@@ -4,18 +4,24 @@ greedy prefill and decode steps over a ``ModelSpec``, for every family.
 The prefill and decode steps are how the encoder-decoder, RWKV6 and
 Mamba2/Zamba2 families are served (the tiered engine serves the GQA decoder
 families only, as in JAX). The train step is ``python -m
-repro_torch.launch.train``'s; the dry run's ``abstract_train_state`` is not
-ported yet.
+repro_torch.launch.train``'s; with a mesh it is the sharded step
+(``shard_train_state`` places the state), and ``abstract_train_state`` is
+the dry run's state on the meta device (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import OptimConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.groups import DataParallelRows
+from repro_torch.launch.mesh import dp_group, dp_index, dp_size
+from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
-from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, leaf_square_sums, norm_of_sums
 from repro_torch.optim.grad_compress import error_feedback_leaf
 from repro_torch.optim.schedules import cosine_schedule
 
@@ -34,17 +40,73 @@ def make_train_state(spec: ModelSpec, generator: torch.Generator, compress: bool
     return state
 
 
-def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1) -> Callable:
+def abstract_train_state(spec: ModelSpec, compress: bool = False):
+    """The train state's leaves on the meta device (shapes and dtypes, no
+    data): bf16 params, an AdamWState of fp32 mu, nu and master with the
+    step as a 0-d int32 (JAX's ``ShapeDtypeStruct((), int32)``), and with
+    ``compress`` the fp32 residual."""
+    params = spec.abstract_params()
+    f32like = lambda: {n: torch.empty(p.shape, dtype=torch.float32, device="meta") for n, p in params.items()}  # noqa: E731
+    state = {"params": params,
+             "opt": AdamWState(torch.empty((), dtype=torch.int32, device="meta"), f32like(), f32like(), f32like())}
+    if compress:
+        state["residual"] = f32like()
+    return state
+
+
+def shard_train_state(spec: ModelSpec, state: Dict[str, Any], mesh, rules=None) -> Dict[str, Any]:
+    """The state on ``mesh``: params, mu, nu, master and the residual as
+    DTensors placed by ``param_specs(spec.schema(), mesh, rules)``, each
+    rank's shard a fresh copy on the mesh's device (``state`` is left as it
+    was, wherever it lies); the step stays a replicated int. The layout is
+    this function's alone: the sharded step reads each leaf's shard from its
+    placements."""
+    specs = sharding.param_specs(spec.schema(), mesh, rules)
+    place = lambda leaves: {n: sharding.distribute(t, mesh, specs[n]) for n, t in leaves.items()}  # noqa: E731
+    opt = state["opt"]
+    out = {"params": place(state["params"]),
+           "opt": AdamWState(opt.step, place(opt.mu), place(opt.nu), place(opt.master))}
+    if "residual" in state:
+        out["residual"] = place(state["residual"])
+    return out
+
+
+def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics), updating the
     state IN PLACE (JAX returns a new one). The global batch is split into
     ``accum_steps`` microbatches of consecutive rows (JAX's reshape); each
-    runs ``loss.backward()`` into the params' bf16 ``.grad``, which is added
-    to an fp32 sum and cleared (JAX's ``g_acc + g.astype(f32)``). The sum
-    over ``accum_steps``, through error feedback with ``compress_grads``,
-    goes to AdamW at the rate ``cosine_schedule`` gives for the step BEFORE
-    the increment (JAX's order: with ``warmup_steps > 0`` the first update
-    has rate 0). Metrics: loss, grad_norm (before the clip), lr, step.
-    ``train_step.grads_and_loss(params, batch)`` is the accumulation alone."""
+    runs ``loss.backward()`` into bf16 ``.grad``, which is added to an fp32
+    sum and cleared (JAX's ``g_acc + g.astype(f32)``). The sum over
+    ``accum_steps``, through error feedback with ``compress_grads``, goes to
+    AdamW at the rate ``cosine_schedule`` gives for the step BEFORE the
+    increment (JAX's order: with ``warmup_steps > 0`` the first update has
+    rate 0). Metrics: loss, grad_norm (before the clip), lr, step.
+    ``train_step.grads_and_loss(params, batch)`` is the accumulation alone.
+
+    With ``mesh`` (spanning every process) the state is placed on it
+    (``shard_train_state``, or a restore onto the mesh), and the step is
+    JAX's function of the global batch. One step:
+
+    (a) gathers each bf16 parameter once into a plain tensor that requires
+        grad (the port's ``use_weight``; over "model" too);
+    (b) takes this rank's rows of each microbatch by ``batch_spec``: block
+        ``dp_index`` of the microbatch's rows (every rank is given the whole
+        global batch; ranks with one data coordinate take the same rows);
+    (c) runs the accumulation on them, plain tensors all the way down (the
+        kernels see no DTensor), with the MoE routing over the global
+        microbatch (``layers.data_parallel_rows``);
+    (d) sums the fp32 gradient over the data-parallel ranks and divides by
+        their count (the global-batch mean); each rank keeps its shard, as
+        the leaf's placements say;
+    (e) error feedback with the whole leaf's int8 scale (a max over the
+        mesh), then AdamW on the local shards in place, clipped by the norm
+        that counts each element once (a shard's sum of squares from its
+        first replica only);
+    (f) returns global metrics: the loss is the mean over every rank's rows.
+
+    Without a mesh the same body runs with every part whole: the rows are
+    the batch, the gather and the reductions are the identity, and a leaf's
+    shard is the leaf."""
 
     def grads_and_loss(params: Tensors, batch: Dict[str, torch.Tensor]) -> Tuple[Tensors, torch.Tensor]:
         B = batch["tokens"].shape[0]
@@ -65,15 +127,56 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1) 
             g.div_(accum_steps)
         return g_sum, loss_sum / accum_steps
 
+    if mesh is None:
+        dp, index, group, rows, sizes, coord = 1, 0, None, None, {}, {}
+    else:
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the mesh spans {mesh.size()} of {dist.get_world_size()} processes; the step reduces "
+                             "the int8 scale and the clip norm over every process, so the mesh must span them all")
+        dp, index, group = dp_size(mesh), dp_index(mesh), dp_group(mesh)
+        rows, sizes, coord = DataParallelRows(group), sharding.mesh_shape(mesh), sharding.mesh_coordinate(mesh)
+
+    def reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, over=None) -> torch.Tensor:
+        """All-reduce ``t`` in place over ``over`` (default: every process,
+        which the mesh spans); the identity without a mesh."""
+        if mesh is not None:
+            dist.all_reduce(t, op=op, group=over)
+        return t
+
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        B = batch["tokens"].shape[0]
+        if B % accum_steps or (B // accum_steps) % dp:
+            raise ValueError(f"global batch {B} does not split into {accum_steps} microbatches over {dp} data ranks")
+        mb = B // accum_steps
+        n = mb // dp
+        own = {k: torch.cat([v[i * mb + index * n:i * mb + (index + 1) * n] for i in range(accum_steps)])
+               for k, v in batch.items()}
         params = state["params"]
-        grads, loss = grads_and_loss(params, batch)
+        specs = {name: sharding.spec_of(p) for name, p in params.items()}
+        full = {name: sharding.gather(p).detach().requires_grad_(True) for name, p in params.items()}
+        with layers.data_parallel_rows(rows):
+            grads, loss = grads_and_loss(full, own)
+        del full
+        for name in sorted(grads):  # leaf by leaf: the whole fp32 sum gives way to this rank's shard
+            g = reduce(grads[name], over=group).div_(dp)
+            grads[name] = g[sharding.shard_slices(g.shape, specs[name], sizes, coord)].contiguous()
+        loss = reduce(loss, over=group) / dp
+        shards = lambda leaves: {name: sharding.local(t) for name, t in leaves.items()}  # noqa: E731
         if optim.compress_grads:
-            for n in sorted(grads):  # leaf by leaf: each fp32 sum is freed as its compressed grad replaces it
-                grads[n] = error_feedback_leaf(grads[n], state["residual"][n])
-        lr = cosine_schedule(optim, state["opt"].step)
-        _, state["opt"], gnorm = adamw_update(optim, state["opt"], grads, lr, params)
-        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, "step": state["opt"].step}
+            residual = shards(state["residual"])
+            amax = lambda x: reduce(x.clone(), op=dist.ReduceOp.MAX)  # noqa: E731 (over every rank: replicas agree)
+            for name in sorted(grads):  # each fp32 sum is freed as its compressed grad replaces it
+                grads[name] = error_feedback_leaf(grads[name], residual[name], amax)
+        sums = leaf_square_sums(grads)
+        first = torch.tensor([sharding.is_first_replica(specs[name], sizes, coord) for name in sorted(grads)],
+                             device=sums.device)
+        gnorm = norm_of_sums(reduce(torch.where(first, sums, torch.zeros_like(sums))))
+        opt = state["opt"]
+        lr = cosine_schedule(optim, opt.step)
+        _, new_opt = adamw_update(optim, AdamWState(opt.step, shards(opt.mu), shards(opt.nu), shards(opt.master)),
+                                  grads, lr, shards(params), gnorm)
+        state["opt"] = AdamWState(new_opt.step, opt.mu, opt.nu, opt.master)
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, "step": new_opt.step}
 
     train_step.grads_and_loss = grads_and_loss
     return train_step

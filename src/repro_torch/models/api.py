@@ -1,10 +1,12 @@
 """Model API facade (port of ``repro/models/api.py``): one front over the
 family modules.
 
-``ModelSpec(cfg)`` provides ``schema`` / ``init`` / ``param_count``,
-``loss`` (next-token cross entropy plus the MoE aux), ``forward`` /
-``prefill`` / ``decode_step`` / ``init_cache`` and ``smoke_batch``. The
-step builders (train, prefill, serve) live in ``repro_torch.launch.steps``.
+``ModelSpec(cfg)`` provides ``schema`` / ``init`` / ``abstract_params`` /
+``param_count``, ``loss`` (next-token cross entropy plus the MoE aux),
+``forward`` / ``prefill`` / ``decode_step`` / ``init_cache``, the dry
+run's stand-ins (``input_specs``, ``cache_specs``, ``cache_pspec``: meta
+tensors and partition specs, no allocation) and ``smoke_batch``. The step
+builders (train, prefill, serve) live in ``repro_torch.launch.steps``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, ShapeConfig
 from repro_torch.models import common, dense, encdec, mamba2, rwkv6
 
 _FAMILY = {
@@ -43,6 +45,9 @@ class ModelSpec:
 
     def init(self, generator: torch.Generator, device="cuda") -> common.Params:
         return common.init_params(generator, self.schema(), resolve_device(device))
+
+    def abstract_params(self) -> common.Params:
+        return common.abstract_params(self.schema())
 
     def param_count(self) -> int:
         return common.param_count(self.schema())
@@ -98,6 +103,39 @@ class ModelSpec:
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return self.mod.init_cache(self.cfg, batch, max_len, device=resolve_device(device))
+
+    def cache_specs(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """``init_cache``'s entries on the meta device, ``length`` a 0-d
+        int32 (JAX's ``cache_specs``)."""
+        cache = self.init_cache(batch, max_len, device="meta")
+        return {k: v if isinstance(v, torch.Tensor) else torch.empty((), dtype=torch.int32, device="meta")
+                for k, v in cache.items()}
+
+    def cache_pspec(self):
+        spec = self.mod.cache_pspec()
+        if self.cfg.family == "hybrid" and not self.cfg.shared_attn_every:
+            spec = {k: v for k, v in spec.items() if not k.startswith("attn_")}
+        return spec
+
+    # ---- input specs (dry-run stand-ins; no allocation) ----
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Every input of the step ``shape.kind`` selects, as meta tensors of
+        JAX's shapes and dtypes: tokens (B, S) int32 and a vlm's patch or an
+        encdec's frame embeddings (train, prefill); tokens (B, 1), pos and
+        the cache (decode)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        meta = lambda *dims, dtype=torch.int32: torch.empty(dims, dtype=dtype, device="meta")  # noqa: E731
+        if shape.kind in ("train", "prefill"):
+            specs: Dict[str, Any] = {"tokens": meta(B, S)}
+            if cfg.family == "vlm":
+                specs["frontend"] = meta(B, cfg.n_frontend_tokens, cfg.d_model, dtype=torch.bfloat16)
+            elif cfg.family == "encdec":
+                specs["frontend"] = meta(B, S // 4, cfg.d_model, dtype=torch.bfloat16)
+            return specs
+        if shape.kind == "decode":
+            return {"tokens": meta(B, 1), "pos": meta(), "cache": self.cache_specs(B, S)}
+        raise ValueError(shape.kind)
 
     # ---- smoke-test helper ----
     def smoke_batch(self, generator: torch.Generator, batch: int = 2, seq: int = 32, device="cuda"):

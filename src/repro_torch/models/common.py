@@ -79,6 +79,12 @@ def init_params(generator: torch.Generator, schema: Schema, device) -> Params:
     return {name: _leaf_init(generator, leaf, device) for name, leaf in flat_leaves(schema)}
 
 
+def abstract_params(schema: Schema) -> Params:
+    """The parameters on the meta device: the schema's shapes and dtypes,
+    no data (JAX's ``ShapeDtypeStruct`` tree)."""
+    return {name: torch.empty(leaf.shape, dtype=_DTYPES[leaf.dtype], device="meta") for name, leaf in flat_leaves(schema)}
+
+
 def sub_params(params: Params, group: str) -> Params:
     """The parameters under ``<group>.*``, keyed without the prefix."""
     prefix = group + "."

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
 from repro_torch.models.layers import AttnParams, decode_attention, moe_ffn, project_qkv, rmsnorm, swiglu
@@ -173,6 +174,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "length": 0,
+    }
+
+
+def cache_pspec():
+    """KV sequence-sharded over "model" (flash-decoding combine via SPMD),
+    batch over ("pod","data") — see DESIGN.md §4 (JAX's specs; the port
+    has no sharded decode step yet: the dry run reads them)."""
+    return {
+        "k": P(None, ("pod", "data"), "model", None, None),
+        "v": P(None, ("pod", "data"), "model", None, None),
+        "length": P(),
     }
 
 

@@ -16,6 +16,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
 from repro_torch.models.layers import AttnParams, decode_attention, gelu_mlp, project_qkv, rmsnorm
@@ -171,6 +172,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
         "cv": zeros(L, batch, Se, KV, hd),
         "length": 0,
     }
+
+
+def cache_pspec():
+    seqsharded = P(None, ("pod", "data"), "model", None, None)
+    return {"k": seqsharded, "v": seqsharded, "ck": seqsharded, "cv": seqsharded, "length": P()}
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any], tokens: torch.Tensor, pos: int):

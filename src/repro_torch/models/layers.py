@@ -4,10 +4,14 @@ Plain functions on tensors, following the JAX arithmetic recipes: rmsnorm in
 fp32, rope in fp32, silu in fp32, decode attention's value contraction with
 the softmax weights rounded to the cache dtype first, and the MoE layer's
 capacity-bounded dispatch (same routing order, same drops). ``shard_hint``
-and ``use_weight`` are gone: they do nothing without a mesh.
+and ``use_weight`` are gone: they do nothing without a mesh. The one trace
+of distribution is ``data_parallel_rows``: the sharded train step sets the
+data-parallel ranks for the length of the step, and ``moe_ffn`` then routes
+over the global microbatch (``repro_torch/distributed/groups.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -132,6 +136,25 @@ def decode_attention(
 # MoE (capacity-based dispatch)
 # ---------------------------------------------------------------------------
 
+# The data-parallel ranks ``moe_ffn`` routes over (``data_parallel_rows``).
+# A plain global, not a context variable: remat recomputes a layer inside
+# the backward, which on the card runs on autograd's own thread.
+_DP_ROWS = None
+
+
+@contextlib.contextmanager
+def data_parallel_rows(rows):
+    """Within the block, ``moe_ffn`` takes its capacity, slots, drops and
+    load-balance aux over the rows of every rank of ``rows`` (a
+    ``DataParallelRows``, or ``ShapeOnlyRows`` on the meta device; None:
+    this rank's rows alone)."""
+    global _DP_ROWS
+    before, _DP_ROWS = _DP_ROWS, rows
+    try:
+        yield
+    finally:
+        _DP_ROWS = before
+
 
 def moe_route(m: MoEConfig, xt: torch.Tensor, w_router: torch.Tensor):
     """Router: xt (T, d) -> (fp32 logits (T, E), probs, renormalised top-k
@@ -206,12 +229,23 @@ def moe_ffn(
     returns 0.0 in its place. ``experts`` (T, k): the expert ids to use in
     place of the router's top k, in that order, with the router's
     probabilities at them renormalised as gates — a replay forced to the
-    routing a run recorded (``launch/serve.py::replay_dense``)."""
+    routing a run recorded (``launch/serve.py::replay_dense``).
+
+    Under ``data_parallel_rows`` each rank's ``x`` is its block of the
+    global microbatch: the router's choices and probabilities are gathered
+    over the ranks, T counts the global rows, slots are claimed in global
+    row order and the load-balance aux is the global one (the router z-loss
+    is a mean over rows, and stays this rank's: the step averages the ranks'
+    losses). Each rank dispatches, runs and combines only its own rows."""
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
     T = B * S
     E = m.num_experts
-    cap = max(1, int(T * m.top_k * m.capacity_factor / E))
+    rows = _DP_ROWS
+    if rows is not None and experts is not None:
+        raise ValueError("moe_ffn: forced experts are a single-rank replay, not a data-parallel step")
+    T_all = T * (rows.size if rows is not None else 1)
+    cap = max(1, int(T_all * m.top_k * m.capacity_factor / E))
     xt = x.reshape(T, d)
 
     logits, probs, gate_vals, idx = moe_route(m, xt, w_router)
@@ -219,7 +253,13 @@ def moe_ffn(
         idx = experts
         gate_vals = probs.gather(-1, idx)
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-    pos, keep = moe_slots(idx, E, cap)
+    idx_all, probs_all = idx, probs
+    if rows is not None:
+        idx_all, probs_all = rows.gather(idx), rows.gather(probs)
+    pos, keep = moe_slots(idx_all, E, cap)
+    if rows is not None:
+        own = slice(rows.index * T, (rows.index + 1) * T)
+        pos, keep = pos[own], keep[own]
     eo = moe_experts(moe_dispatch(xt, idx, pos, keep, E, cap), w_gate, w_up, w_down)
     out = moe_combine(eo, idx, pos, gate_vals * keep, cap)
     if shared is not None:
@@ -228,8 +268,8 @@ def moe_ffn(
         return out.reshape(B, S, d), 0.0
 
     # aux losses (load balance + router z)
-    me = probs.mean(0)  # (E,)
-    ce = (F.one_hot(idx, E).sum(1) > 0).float().mean(0)
+    me = probs_all.mean(0)  # (E,)
+    ce = (F.one_hot(idx_all, E).sum(1) > 0).float().mean(0)
     lb = E * torch.sum(me * ce) * m.load_balance_loss
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * m.router_z_loss
     return out.reshape(B, S, d), lb + z

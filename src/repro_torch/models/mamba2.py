@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked, sub_params
 from repro_torch.models.layers import AttnParams, decode_attention, project_qkv, rmsnorm, swiglu
@@ -291,6 +292,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
         cache["attn_k"] = torch.zeros(kv, dtype=torch.bfloat16, device=device)
         cache["attn_v"] = torch.zeros(kv, dtype=torch.bfloat16, device=device)
     return cache
+
+
+def cache_pspec():
+    return {
+        "conv": P(None, ("pod", "data"), None, None),
+        "ssm": P(None, ("pod", "data"), None, None, None),
+        "attn_k": P(None, ("pod", "data"), "model", None, None),
+        "attn_v": P(None, ("pod", "data"), "model", None, None),
+        "length": P(),
+    }
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any], tokens: torch.Tensor, pos: int):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
 from repro_torch.models.layers import rmsnorm
 
@@ -209,6 +210,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
         "tm_prev": torch.zeros((L, batch, 1, d), dtype=torch.bfloat16, device=device),
         "cm_prev": torch.zeros((L, batch, 1, d), dtype=torch.bfloat16, device=device),
         "length": 0,
+    }
+
+
+def cache_pspec():
+    return {
+        "wkv": P(None, ("pod", "data"), "model", None, None),
+        "tm_prev": P(None, ("pod", "data"), None, None),
+        "cm_prev": P(None, ("pod", "data"), None, None),
+        "length": P(),
     }
 
 

@@ -30,20 +30,29 @@ def adamw_init(params: Tensors) -> AdamWState:
     return AdamWState(0, zeros(), zeros(), master)
 
 
+def leaf_square_sums(grads: Tensors) -> torch.Tensor:
+    """(n_leaves,) fp32: each leaf's sum of squares, leaves in flatten order
+    (sorted dotted names: JAX's order of the nested tree)."""
+    return torch.stack([torch.sum(torch.square(grads[n].to(torch.float32))) for n in sorted(grads)])
+
+
+def norm_of_sums(sums: torch.Tensor) -> torch.Tensor:
+    """sqrt of the Python sum of the leaves' sums of squares, in order."""
+    return torch.sqrt(sum(sums.unbind()))
+
+
 def global_norm(grads: Tensors) -> torch.Tensor:
-    """sqrt of the Python sum of each leaf's fp32 sum of squares, leaves in
-    flatten order (sorted dotted names: JAX's order of the nested tree)."""
-    return torch.sqrt(sum(torch.sum(torch.square(grads[n].to(torch.float32))) for n in sorted(grads)))
+    return norm_of_sums(leaf_square_sums(grads))
 
 
 def adamw_update(
-    cfg: OptimConfig, state: AdamWState, grads: Tensors, lr, params: Tensors,
-) -> Tuple[Tensors, AdamWState, torch.Tensor]:
-    """One AdamW step after a global-norm clip. Returns (``params``, new
-    state, grad norm before the clip). ``grads`` must be fp32 and are
-    CONSUMED (overwritten); mu, nu, master and the bf16 ``params`` are
-    updated in place."""
-    gnorm = global_norm(grads)
+    cfg: OptimConfig, state: AdamWState, grads: Tensors, lr, params: Tensors, gnorm: torch.Tensor,
+) -> Tuple[Tensors, AdamWState]:
+    """One AdamW step after a clip by the global norm ``gnorm`` (of the
+    whole gradient: ``global_norm(grads)``, or the sharded step's norm when
+    ``grads`` are shards). Returns (``params``, new state). ``grads`` must
+    be fp32 and are CONSUMED (overwritten); mu, nu, master and the bf16
+    ``params`` are updated in place."""
     scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip) / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     t = torch.tensor(step, dtype=torch.float32, device=gnorm.device)
@@ -62,4 +71,4 @@ def adamw_update(
             upd.add_(torch.mul(master, cfg.weight_decay, out=g))  # + wd master
             master.sub_(upd.mul_(lr))  # master - lr (...)
             params[n].copy_(master)
-    return params, AdamWState(step, state.mu, state.nu, state.master), gnorm
+    return params, AdamWState(step, state.mu, state.nu, state.master)

@@ -6,18 +6,26 @@ the optimizer path.
 
 Per tensor: scale = max(max |x|, 1e-12) / 127, q = clip(round(x / scale),
 -127, 127) with round half to even (as ``jnp.round``), x_hat = q * scale.
+On a sharded leaf the max is the whole leaf's: the caller passes
+``amax_reduce``, which takes this shard's max |x| to the max over every
+shard (an all-reduce of max), so that every shard quantizes on one scale.
+
+JAX compresses the gradient after GSPMD has reduced it over the data axes
+(``repro/launch/steps.py:85-93``; its module docstring says "before the
+all-reduce", its code does not), and so does the port's sharded step.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 Grads = Dict[str, torch.Tensor]
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q int8, scale), scaled by ``amax``: the max |x| of the whole tensor."""
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -29,15 +37,22 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def compress_decompress(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Round trip through int8. Returns (g_hat, error) in fp32."""
     g32 = g.to(torch.float32)
-    g_hat = dequantize_int8(*quantize_int8(g32))
+    g_hat = dequantize_int8(*quantize_int8(g32, g32.abs().max()))
     return g_hat, g32 - g_hat
 
 
-def error_feedback_leaf(g: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+def error_feedback_leaf(
+    g: torch.Tensor, residual: torch.Tensor, amax_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> torch.Tensor:
     """Compress ``g + residual``; the new residual (the compression error) is
-    written into ``residual`` IN PLACE. Returns the compressed gradient."""
-    g_hat, err = compress_decompress(g.to(torch.float32) + residual)
-    residual.copy_(err)
+    written into ``residual`` IN PLACE. Returns the compressed gradient.
+    ``amax_reduce``: this shard's max |g + residual| -> the whole leaf's."""
+    x = g.to(torch.float32) + residual
+    amax = x.abs().max()
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    g_hat = dequantize_int8(*quantize_int8(x, amax))
+    residual.copy_(x - g_hat)
     return g_hat
 
 

@@ -1,0 +1,378 @@
+"""The port's sharded train step (``launch/steps.py::build_train_step(mesh=)``)
+in gloo processes on CPU meshes, against JAX's single-device
+``build_train_step`` on the same bridged weights and batch. JAX's own
+sharded step cannot serve as the reference: ``tests/test_distributed.py``
+fails in JAX (ROADMAP.md, "The reference's own state"), and GSPMD does not
+change the math. Each test spawns its ranks (``torch_dist_worker.py``) with
+a timeout of RUN_TIMEOUT seconds.
+
+- reduced qwen3-1.7b on a (2, 4) data x model mesh, the batch of
+  tests/test_distributed.py, accum 2, lr 1e-3, three steps, with and
+  without int8 error feedback: the losses finite and falling, and each step
+  against JAX's step from the same state by tests/test_torch_train_step.py's
+  rules (``assert_one_step``);
+- reduced olmoe-1b-7b on a (3, 2) mesh (embed 64 and the router fall back
+  to replication on "data", the experts shard over "model"), batch 12,
+  accum 2: the same, JAX's top-k taking the run's expert ids (bf16 router
+  ties), with (token, choice) pairs dropped by the global capacity, the
+  same ones as the unsharded step's;
+- the same on a (2, 2, 2) pod x data x model mesh, with compression;
+- a 1 x 1 mesh equals the unsharded step bit for bit;
+- elastic restore: saved on (2, 4), restored on (1, 1) and on (4, 2), the
+  leaves equal, the next step equal.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import OptimConfig as JaxOptimConfig
+from repro.launch.steps import build_train_step as jax_build_train_step
+from repro.optim.adamw import AdamWState as JaxAdamWState
+from repro.optim.adamw import adamw_init as jax_adamw_init
+from repro_torch import bridge
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs import OptimConfig
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models import layers
+from test_torch_train_cases import LOSS_RTOL, grad_tol, jax_exact, jax_flash_attention, train_pair  # noqa: F401
+from torch_dist_worker import restore_target
+
+ROOT = Path(__file__).resolve().parent.parent
+WORKER = Path(__file__).resolve().parent / "torch_dist_worker.py"
+RUN_TIMEOUT = 300
+LR = 1e-3
+GNORM_RTOL = 1e-3  # tests/test_torch_train_step.py's tolerances, step by step
+MU_TOL, NU_TOL = 2e-2, 4e-2
+# A router call of JAX's step is matched to the port's recorded call whose
+# probabilities lie nearest; the two differ by bf16 rounding upstream
+# (far below this), two different calls by far more.
+ROUTE_MATCH = 1e-2
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(tmp: Path, name: str, world: int, **case) -> dict:
+    """Spawn ``world`` ranks of the worker on ``case``; returns rank 0's
+    metrics.json. Fails if a rank fails or the run exceeds RUN_TIMEOUT."""
+    case = dict(case, out=str(tmp / name))
+    case_path = tmp / f"{name}.json"
+    case_path.write_text(json.dumps(case))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
+               OMP_NUM_THREADS="1")
+    port = _free_port()
+    logs = [open(tmp / f"{name}.rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(case_path), str(r), str(world), str(port)],
+                              stdout=log, stderr=subprocess.STDOUT, env=env) for r, log in enumerate(logs)]
+    deadline = time.monotonic() + RUN_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"{name}: the ranks did not finish in {RUN_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        tail = (tmp / f"{name}.rank{codes.index(next(c for c in codes if c))}.log").read_text()[-4000:]
+        pytest.fail(f"{name}: exit codes {codes}\n{tail}")
+    return json.loads((tmp / name / "metrics.json").read_text())
+
+
+def start(tmp: Path, arch: str, compress: bool, tokens: np.ndarray):
+    """The bridged train state saved as step 0 of ``tmp/ckpt_in``, the batch
+    as ``tmp/batch.npy``; returns (pair, JAX state)."""
+    pair = train_pair(arch)
+    jstate = {"params": pair.jparams, "opt": jax_adamw_init(pair.jparams)}
+    if compress:
+        jstate["residual"] = jax.tree_util.tree_map(lambda x: jnp.zeros(x.shape, jnp.float32), pair.jparams)
+    state = bridge.train_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
+    Checkpointer(str(tmp / "ckpt_in"), async_save=False).save(0, state)
+    np.save(tmp / "batch.npy", tokens)
+    return pair, jstate
+
+
+def jax_state(state):
+    """The port's train state as JAX's (jnp leaves, an AdamWState)."""
+    tree = bridge.train_state_to_jax(state)
+    tree["opt"] = JaxAdamWState(**tree["opt"])
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def optim_kw(compress: bool):
+    return dict(lr=LR, warmup_steps=0, total_steps=10, compress_grads=compress)
+
+
+def jax_step_fn(pair, state, tokens, accum: int, compress: bool):
+    """JAX's single-device step, compiled once: state (the port's) ->
+    (metrics, the new state in the port's form)."""
+    jb = {"tokens": jnp.asarray(tokens)}
+    fn = jax_exact(jax_build_train_step(pair.jspec, JaxOptimConfig(**optim_kw(compress)), accum_steps=accum),
+                   jax_state(state), jb)
+
+    def step(st):
+        new, m = fn(jax_state(st), jb)
+        return {k: float(v) for k, v in m.items()}, bridge.train_state_from_jax(jax.tree_util.tree_map(np.asarray, new))
+
+    return step
+
+
+def port_step(pair, state, tokens, accum: int, compress: bool):
+    """The port's unsharded step from a copy of ``state``: (metrics, new
+    state)."""
+    st = {"params": {n: t.clone().requires_grad_(True) for n, t in state["params"].items()},
+          "opt": state["opt"]._replace(mu={n: t.clone() for n, t in state["opt"].mu.items()},
+                                       nu={n: t.clone() for n, t in state["opt"].nu.items()},
+                                       master={n: t.clone() for n, t in state["opt"].master.items()})}
+    if compress:
+        st["residual"] = {n: t.clone() for n, t in state["residual"].items()}
+    step = build_train_step(pair.spec, OptimConfig(**optim_kw(compress)), accum)
+    new, m = step(st, {"tokens": torch.from_numpy(tokens)})
+    return {k: float(v) for k, v in m.items()}, new
+
+
+def restored(path: Path, arch: str, compress: bool, step: int):
+    spec = train_pair(arch).spec
+    state, _, got = Checkpointer(str(path), async_save=False).restore(restore_target(spec, compress), step=step,
+                                                                      device="cpu")
+    assert got == step
+    return state
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+def quant_steps(out, k: int, names):
+    """{leaf: int8 quantization step} of step ``k`` of a sharded run."""
+    names = sorted(names)
+    assert len(out["quant_steps"]) % len(names) == 0 and len(out["quant_steps"]) > k * len(names)
+    return dict(zip(names, out["quant_steps"][k * len(names):(k + 1) * len(names)]))
+
+
+def assert_one_step(before, after, m, want_after, want_m, quant=None, mu_tol=lambda name: MU_TOL):
+    """One step from ``before`` against the reference's step from the same
+    state, by tests/test_torch_train_step.py's rules: loss within
+    LOSS_RTOL, grad norm within GNORM_RTOL, mu and nu within MU_TOL
+    (``mu_tol``: a leaf's own, by name) / NU_TOL of the leaf's max, master
+    moved by at most 2 lr, the residual within half its quantization step
+    and within one of the reference's (``quant``: {leaf: step}, where the
+    step compressed), params = bf16(master). The first AdamW step is
+    sign-like (mhat / sqrt(nhat) = g / (|g| + eps)), so there the masters
+    agree to 1e-5 where the two sides' mu agree in sign and both exceed
+    1e-6 (a data-parallel gradient is a sum of the ranks' bf16 gradients,
+    each rounded apart: one side's may lie near 0 where eps tells); a later
+    step's update is a ratio of mu and nu that each side takes from its
+    own, so there the master is held to AdamW's update of its own mu and nu
+    (within 4e-7 relative: a few fp32 ulps of another order of the same
+    operations)."""
+    np.testing.assert_allclose(m["loss"], want_m["loss"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(m["grad_norm"], want_m["grad_norm"], rtol=GNORM_RTOL)
+    assert m["lr"] == want_m["lr"] and m["step"] == want_m["step"] == before["opt"].step + 1
+    opt, ref = after["opt"], want_after["opt"]
+    assert opt.step == ref.step == before["opt"].step + 1
+    for n, p in after["params"].items():
+        assert torch.equal(p, opt.master[n].to(torch.bfloat16)), n
+        assert _rel(opt.mu[n], ref.mu[n]) <= mu_tol(n), ("mu", n, _rel(opt.mu[n], ref.mu[n]))
+        assert _rel(opt.nu[n], ref.nu[n]) <= NU_TOL, ("nu", n, _rel(opt.nu[n], ref.nu[n]))
+        moved = (opt.master[n] - ref.master[n]).abs()
+        assert float(moved.max()) <= 2 * LR * 1.001, ("master", n, float(moved.max()))
+        if before["opt"].step == 0:
+            agree = (torch.sign(opt.mu[n]) == torch.sign(ref.mu[n])) & (torch.minimum(opt.mu[n].abs(), ref.mu[n].abs()) > 1e-6)
+            if agree.any():
+                assert float(moved[agree].max()) <= 1e-5, ("master where mu agrees", n, float(moved[agree].max()))
+        else:
+            t, c = opt.step, OptimConfig()
+            upd = (opt.mu[n] / (1 - c.b1 ** t)) / (torch.sqrt(opt.nu[n] / (1 - c.b2 ** t)) + c.eps)
+            expect = before["opt"].master[n] - m["lr"] * (upd + c.weight_decay * before["opt"].master[n])
+            assert torch.allclose(opt.master[n], expect, rtol=4e-7, atol=1e-9), ("master vs its own AdamW update", n)
+    for n, q in (quant or {}).items():
+        r = after["residual"][n]
+        assert float((r - want_after["residual"][n]).abs().max()) <= 1.05 * q, n
+        assert float(r.abs().max()) <= 0.5 * q * 1.0001, n
+
+
+def assert_states_equal(a, b):
+    for (n, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y), n
+        else:
+            assert x == y, n
+
+
+def _leaves(state):
+    out = [("opt.step", state["opt"].step)]
+    for group in ("params", "residual"):
+        out += [(f"{group}.{n}", t) for n, t in sorted(state.get(group, {}).items())]
+    for field in ("mu", "nu", "master"):
+        out += [(f"opt.{field}.{n}", t) for n, t in sorted(getattr(state["opt"], field).items())]
+    return out
+
+
+def run_steps(tmp: Path, arch: str, mesh, compress: bool, tokens: np.ndarray, steps: int = 3,
+              axes=("data", "model"), **extra):
+    """``steps`` sharded steps from the bridged state; returns (pair, the
+    run's metrics.json, the state before each step and after the last)."""
+    pair, _ = start(tmp, arch, compress, tokens)
+    out = run_ranks(tmp, "run", int(np.prod(mesh)), arch=arch, mesh=mesh, axes=list(axes), accum=2, lr=LR,
+                    compress=compress, steps=steps, ckpt_in=str(tmp / "ckpt_in"), step_in=0,
+                    batch=str(tmp / "batch.npy"), ckpt_out=str(tmp / "ckpt_out"), save_after=list(range(steps + 1)),
+                    **extra)
+    states = [restored(tmp / "ckpt_out", arch, compress, k) for k in range(steps + 1)]
+    losses = [m["loss"] for m in out["metrics"]]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    return pair, out, states
+
+
+QWEN_TOKENS = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (8, 64), 0, 100, jnp.int32))
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_qwen3_on_2x4_matches_jax(tmp_path, compress):
+    """Three steps on a (2, 4) mesh; each step against JAX's step from the
+    same state (the trajectories of any two implementations part by bf16
+    noise over steps, the port's unsharded step's too)."""
+    pair, out, states = run_steps(tmp_path, "qwen3-1.7b", [2, 4], compress, QWEN_TOKENS)
+    jstep = jax_step_fn(pair, states[0], QWEN_TOKENS, 2, compress)
+    for k in range(3):
+        want_m, want = jstep(states[k])
+        quant = quant_steps(out, k, states[k]["params"]) if compress else None
+        assert_one_step(states[k], states[k + 1], out["metrics"][k], want, want_m, quant)
+
+
+def test_qwen3_on_a_pod_data_model_mesh_matches_jax(tmp_path):
+    """The multi-pod layout, (2, 2, 2) as ("pod", "data", "model"): the
+    batch split over pod and data (pod major), the gradient summed over
+    both; two steps, each against JAX's step from the same state."""
+    pair, out, states = run_steps(tmp_path, "qwen3-1.7b", [2, 2, 2], True, QWEN_TOKENS, steps=2,
+                                  axes=("pod", "data", "model"))
+    jstep = jax_step_fn(pair, states[0], QWEN_TOKENS, 2, True)
+    for k in range(2):
+        want_m, want = jstep(states[k])
+        assert_one_step(states[k], states[k + 1], out["metrics"][k], want, want_m, quant_steps(out, k, states[k]["params"]))
+
+
+def forced_top_k(table):
+    """``jax.lax.top_k`` for the trace of JAX's MoE: each router call takes
+    the expert ids a port run recorded for the same call, and the
+    probabilities at them as its gates (``moe_ffn(experts=)``'s rule).
+    ``table`` holds one step's calls: "probs" (calls, T0, E), rank 0's router
+    probabilities of its own rows (the first T0 of the global microbatch),
+    and "ids" (calls, T, k), the global expert ids. A call is the recorded
+    one whose probabilities lie nearest, within ROUTE_MATCH."""
+
+    def lookup(probs):
+        probs = np.asarray(probs)
+        gap = np.abs(table["probs"] - probs[None, :table["probs"].shape[1]]).max(axis=(1, 2))
+        c = int(gap.argmin())
+        if gap[c] > ROUTE_MATCH:
+            raise AssertionError(f"no recorded router call within {ROUTE_MATCH} (nearest {gap[c]})")
+        return table["ids"][c].astype(np.int32)
+
+    def top_k(probs, k):
+        shape = jax.ShapeDtypeStruct(probs.shape[:-1] + (k,), jnp.int32)
+        idx = jax.pure_callback(lookup, shape, jax.lax.stop_gradient(probs))
+        return jnp.take_along_axis(probs, idx, axis=-1), idx
+
+    return top_k
+
+
+def test_olmoe_on_3x2_matches_jax_with_global_capacity(tmp_path):
+    """Three steps on a (3, 2) mesh: embed 64 and the router replicated on
+    "data" (3 does not divide 64), the experts split over "model". The
+    global capacity drops (token, choice) pairs, the same ones as the
+    port's unsharded step. bf16 router logits tie exactly between experts,
+    and a one-ulp difference between torch's and XLA's GEMMs breaks a tie
+    the other way (ROADMAP.md §3), so JAX's top-k takes the sharded run's
+    expert ids (``forced_top_k``); its capacity, slots, drops, gates, aux
+    and gradients are its own. Each step is then held to JAX's step from
+    the same state by ``assert_one_step`` (mu by the loss tests' gradient
+    tolerance of each leaf), and to the port's unsharded step by it as it
+    stands."""
+    tokens = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (12, 64), 0, 100, jnp.int32))
+    pair, out, states = run_steps(tmp_path, "olmoe-1b-7b", [3, 2], False, tokens, routing=True)
+    assert sum(out["drops"]) > 0, "no (token, choice) pair was dropped: the global capacity is not tested"
+    recorded = np.load(tmp_path / "run" / "routing.npz")
+    inner, drops = layers.moe_slots, []
+
+    def counting(idx, num_experts, cap):
+        pos, keep = inner(idx, num_experts, cap)
+        drops.append(int((~keep).sum()))
+        return pos, keep
+
+    # mu after step 0 is (1 - b1) x the clipped gradient: against JAX, each
+    # leaf within its gradient tolerance of the loss tests (grad_tol: 5e-2
+    # for the norm gains, which sum bf16 products over every position;
+    # measured: attn_norm 0.0207 at step 0, wk 0.0190, the rest <= 0.0151)
+    jax_mu_tol = lambda name: max(MU_TOL, grad_tol(pair.spec, "olmoe-1b-7b", name))  # noqa: E731
+    table = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.lax, "top_k", forced_top_k(table))
+        jstep = jax_step_fn(pair, states[0], tokens, 2, False)
+    per_step = len(out["drops"]) // 3  # the sharded run's MoE calls a step (forward and remat recompute)
+    for k in range(3):
+        drops.clear()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(layers, "moe_slots", counting)
+            un_m, un = port_step(pair, states[k], tokens, 2, False)
+        assert out["drops"][k * per_step:(k + 1) * per_step] == drops
+        assert_one_step(states[k], states[k + 1], out["metrics"][k], un, un_m)
+        calls = slice(k * per_step, (k + 1) * per_step)
+        table.update(probs=recorded["probs"][calls], ids=recorded["ids"][calls])
+        want_m, want = jstep(states[k])
+        assert_one_step(states[k], states[k + 1], out["metrics"][k], want, want_m, mu_tol=jax_mu_tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_1x1_mesh_is_the_unsharded_step_bit_for_bit(tmp_path, arch):
+    start(tmp_path, arch, True, QWEN_TOKENS)
+    out = run_ranks(tmp_path, "run", 1, arch=arch, mesh=[1, 1], axes=["data", "model"], accum=2, lr=LR,
+                    compress=True, steps=2, ckpt_in=str(tmp_path / "ckpt_in"), step_in=0,
+                    batch=str(tmp_path / "batch.npy"), ckpt_out=str(tmp_path / "ckpt_out"), save_after=[2],
+                    unsharded=True)
+    assert out["metrics"] == out["unsharded"]
+    assert_states_equal(restored(tmp_path / "ckpt_out", arch, True, 2),
+                        restored(tmp_path / "ckpt_out_unsharded", arch, True, 2))
+
+
+def test_elastic_restore(tmp_path):
+    """Saved on (2, 4) after step 1; restored on (1, 1) and on (4, 2): the
+    restored leaves, saved again, equal the checkpoint's; the next step on
+    (1, 1) is the unsharded next step bit for bit, and on (4, 2) JAX's next
+    step from the checkpoint, by ``assert_one_step``."""
+    arch = "qwen3-1.7b"
+    case = dict(arch=arch, axes=["data", "model"], accum=2, lr=LR, compress=True, batch=str(tmp_path / "batch.npy"))
+    pair, _ = start(tmp_path, arch, True, QWEN_TOKENS)
+    run_ranks(tmp_path, "a", 8, mesh=[2, 4], steps=1, ckpt_in=str(tmp_path / "ckpt_in"), step_in=0,
+              ckpt_out=str(tmp_path / "a"), save_after=[1], **case)
+    saved = restored(tmp_path / "a", arch, True, 1)
+    for name, mesh in (("b", [1, 1]), ("c", [4, 2])):
+        world = int(np.prod(mesh))
+        out = run_ranks(tmp_path, name, world, mesh=mesh, steps=1, ckpt_in=str(tmp_path / "a"), step_in=1,
+                        ckpt_out=str(tmp_path / name), save_after=[0, 1], unsharded=(world == 1), **case)
+        assert_states_equal(restored(tmp_path / name, arch, True, 1), saved)
+        after = restored(tmp_path / name, arch, True, 2)
+        if world == 1:
+            assert out["metrics"] == out["unsharded"]
+            assert_states_equal(after, restored(tmp_path / f"{name}_unsharded", arch, True, 2))
+        else:
+            want_m, want = jax_step_fn(pair, saved, QWEN_TOKENS, 2, True)(saved)
+            assert_one_step(saved, after, out["metrics"][0], want, want_m, quant_steps(out, 0, saved["params"]))

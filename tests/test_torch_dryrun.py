@@ -1,0 +1,182 @@
+"""The port's dry run (``repro_torch/launch/dryrun.py``) against the JAX
+package's layout, on the meta device with no process group:
+
+- every arch x shape x mesh cell: the skip list is JAX's
+  ``shape_applicable``; the per-device bytes of params, opt (mu, nu, master
+  and the int32 step), residual, inputs and a decode cell's cache equal
+  those computed here from JAX's ``param_specs``, ``abstract_train_state``,
+  ``input_specs``, ``batch_spec``, ``cache_pspec`` and
+  ``filter_spec_for_mesh`` on the same fake mesh;
+- ``ModelSpec.input_specs`` / ``cache_specs`` / ``cache_pspec`` equal JAX's;
+- the FLOPs counted on meta equal those counted on a real CPU run of the
+  same reduced arch and shape;
+- the CLI writes one cell's JSON.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SHAPES as JAX_SHAPES
+from repro.configs import get_config as jax_get_config
+from repro.configs import shape_applicable as jax_shape_applicable
+from repro.distributed import sharding as jax_sharding
+from repro.launch.steps import abstract_train_state as jax_abstract_train_state
+from repro.models.api import ModelSpec as JaxSpec
+from repro_torch import configs
+from repro_torch.configs import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.models.api import ModelSpec
+
+ROOT = Path(__file__).resolve().parent.parent
+MESHES = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
+JP = jax.sharding.PartitionSpec
+DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32", torch.int32: "int32"}
+
+
+class _FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+def _jax_flat(tree, prefix=""):
+    for key in sorted(tree):
+        node = tree[key]
+        if isinstance(node, dict):
+            yield from _jax_flat(node, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", node
+
+
+def _local_bytes(sds, spec, mesh) -> int:
+    """One device's bytes of ``sds`` under a JAX spec, counted here."""
+    n = 1
+    for dim, entry in zip(sds.shape, tuple(spec) + (None,) * (len(sds.shape) - len(spec))):
+        names = () if entry is None else ((entry,) if isinstance(entry, str) else entry)
+        size = math.prod(mesh[a] for a in names)
+        assert dim % size == 0
+        n *= dim // size
+    return n * np.dtype(sds.dtype).itemsize
+
+
+def jax_cell_bytes(arch, shape_name, mesh):
+    jspec, fake, shape = JaxSpec(jax_get_config(arch)), _FakeMesh(mesh), JAX_SHAPES[shape_name]
+    specs = dict(_jax_flat(jax_sharding.param_specs(jspec.schema(), fake)))
+    state = jax_abstract_train_state(jspec, compress=True)
+    per = lambda tree: sum(_local_bytes(s, specs[n], mesh) for n, s in _jax_flat(tree))  # noqa: E731
+    opt = state["opt"]
+    out = {"params": per(state["params"]), "residual": per(state["residual"]), "opt": 0}
+    if shape.kind == "train":
+        out["opt"] = per(opt.mu) + per(opt.nu) + per(opt.master) + np.dtype(opt.step.dtype).itemsize
+    inputs = dict(jspec.input_specs(shape))
+    cache = inputs.pop("cache", None)
+    bspec = jax_sharding.batch_spec(fake)
+    out["inputs"] = sum(
+        _local_bytes(s, jax_sharding.filter_spec_for_mesh(JP(*([bspec[0]] + [None] * (len(s.shape) - 1))), fake,
+                                                          s.shape), mesh) if s.shape else np.dtype(s.dtype).itemsize
+        for s in inputs.values())
+    if cache is not None:
+        cspec = jspec.cache_pspec()
+        out["cache"] = sum(_local_bytes(s, jax_sharding.filter_spec_for_mesh(cspec[k], fake, s.shape), mesh)
+                           for k, s in cache.items())
+    out["state"] = out["params"] + out["opt"]
+    return out
+
+
+@pytest.mark.parametrize("mesh_kind", list(MESHES))
+def test_every_cell_bytes_and_skips_equal_jax(tmp_path, mesh_kind):
+    """Each cell JAX's ``shape_applicable`` skips is written as skipped;
+    every other cell's byte columns equal JAX's."""
+    mesh = MESHES[mesh_kind]
+    for arch in configs.ARCH_IDS:
+        for shape_name in configs.SHAPES:
+            if not configs.shape_applicable(configs.get_config(arch), configs.SHAPES[shape_name])[0]:
+                rec = dryrun.run_cell(arch, shape_name, mesh_kind, tmp_path)
+                assert rec["skipped"] and rec["reason"], (arch, shape_name)
+                assert (tmp_path / mesh_kind / f"{arch}__{shape_name}.json").exists()
+                continue
+            rec = dryrun.cell_bytes(arch, shape_name, mesh)
+            assert rec["bytes"] == jax_cell_bytes(arch, shape_name, mesh), (arch, shape_name)
+            whole = ModelSpec(configs.get_config(arch)).param_count()
+            assert rec["port_step_bytes"]["gathered_params"] == 2 * whole
+            if configs.SHAPES[shape_name].kind == "train":
+                assert rec["port_step_bytes"]["grad_sum"] == 4 * whole
+    skipped = {(r.stem.split("__")[0], r.stem.split("__")[1]) for r in (tmp_path / mesh_kind).glob("*.json")}
+    assert skipped == {(a, s) for a in configs.ARCH_IDS for s, shape in JAX_SHAPES.items()
+                       if not jax_shape_applicable(jax_get_config(a), shape)[0]}
+
+
+def test_full_state_bytes_on_one_device():
+    """qwen3-1.7b's state on a 1 x 1 mesh: 14 B a parameter (bf16 params,
+    fp32 mu, nu, master) plus the step, and 4 more with the residual (what
+    chip_smoke.py's phase 8 holds the card's allocation to)."""
+    rec = dryrun.cell_bytes("qwen3-1.7b", "train_4k", {"data": 1, "model": 1})
+    n = ModelSpec(configs.get_config("qwen3-1.7b")).param_count()
+    assert rec["bytes"]["state"] == 14 * n + 4 and rec["bytes"]["residual"] == 4 * n
+    assert rec["collective_bytes"] == {"param_gather": 0, "grad_all_reduce": 0}
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_input_specs_and_cache_pspec_equal_jax(arch):
+    spec, jspec = ModelSpec(configs.get_config(arch)), JaxSpec(jax_get_config(arch))
+    assert {k: tuple(v) for k, v in spec.cache_pspec().items()} == {k: tuple(v) for k, v in jspec.cache_pspec().items()}
+    for name, shape in configs.SHAPES.items():
+        got, want = spec.input_specs(shape), jspec.input_specs(JAX_SHAPES[name])
+        got_cache, want_cache = got.pop("cache", {}), dict(want).pop("cache", {})
+        want = {k: v for k, v in want.items() if k != "cache"}
+        for g, w in [(got, want), (got_cache, want_cache)]:
+            assert sorted(g) == sorted(w), (name, sorted(g), sorted(w))
+            for k, t in g.items():
+                assert t.device.type == "meta" and tuple(t.shape) == tuple(w[k].shape), (name, k)
+                assert DTYPES[t.dtype] == np.dtype(w[k].dtype).name, (name, k)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "whisper-base", "rwkv6-3b", "zamba2-7b",
+                                  "llava-next-34b"])
+def test_flops_on_meta_equal_a_cpu_run(arch):
+    cfg = configs.get_reduced(arch)
+    mesh = {"data": 1, "model": 1}
+    for shape in (ShapeConfig("train_4k", 64, 8, "train"), ShapeConfig("prefill_32k", 64, 2, "prefill"),
+                  ShapeConfig("decode_32k", 64, 2, "decode")):
+        meta = dryrun.cell_flops(cfg, shape, mesh, device="meta")
+        cpu = dryrun.cell_flops(cfg, shape, mesh, device="cpu")
+        assert meta == cpu and meta["flops"] > 0, (shape.kind, meta, cpu)
+
+
+def test_cli_writes_a_cell(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-135m", "--shape",
+                          "decode_32k", "--mesh", "multi", "--out", str(tmp_path)], env=env, capture_output=True,
+                         text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert "done: ok=1 fail=0 skip=0" in res.stdout
+    rec = json.loads((tmp_path / "multi" / "smollm-135m__decode_32k.json").read_text())
+    assert rec["ok"] and rec["mesh_kind"] == "multi" and rec["n_devices"] == 512 and rec["flops"] > 0
+    assert rec["device"] == "NVIDIA H100 80GB HBM3" and rec["fits"] is (rec["total_bytes"] <= 80e9) is True
+    assert rec["mesh"] == {"pod": 2, "data": 16, "model": 16}
+    assert set(rec["bytes"]) == {"params", "opt", "residual", "inputs", "cache", "state"}
+
+
+def test_kernel_wrappers_choose_by_device_type():
+    """On meta a wrapper runs its plain version (shapes only); cpu and meta
+    take the plain version, cuda the kernel, any other device type raises."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q = torch.empty((1, 16, 4, 8), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((1, 16, 2, 8), dtype=torch.bfloat16, device="meta")
+    out = flash_attention(q, kv, kv)
+    assert out.device.type == "meta" and out.shape == q.shape
+    fake = lambda kind: SimpleNamespace(device=SimpleNamespace(type=kind))  # noqa: E731
+    assert _build.plain(fake("cpu"), "op") and _build.plain(fake("meta"), "op") and not _build.plain(fake("cuda"), "op")
+    with pytest.raises(ValueError):
+        _build.plain(fake("xpu"), "op")

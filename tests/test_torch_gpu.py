@@ -651,3 +651,46 @@ def test_train_launcher_crash_and_resume_on_the_card(cuda, tmp_path):
     from test_torch_train_drill import launcher_drill
 
     launcher_drill(tmp_path, "cuda", extra=["--compress"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_sharded_step_on_one_rank_nccl(cuda, arch):
+    """The sharded train step on a 1 x 1 mesh over a one-rank NCCL group
+    (its gathers and reductions are copies; olmoe's MoE gathers its routing
+    over the group) equals the unsharded step on the card bit for bit: two
+    steps with int8 error feedback, metrics and every leaf of the state."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import OptimConfig
+    from repro_torch.distributed.sharding import local
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, make_train_state, shard_train_state
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_host_mesh("cuda")
+        spec = ModelSpec(get_reduced(arch))
+        optim = OptimConfig(lr=1e-3, warmup_steps=0, total_steps=10, compress_grads=True)
+        state = make_train_state(spec, torch.Generator(device=cuda).manual_seed(0), compress=True, device=cuda)
+        sharded = shard_train_state(spec, state, mesh)
+        batch = spec.smoke_batch(torch.Generator(device=cuda).manual_seed(1), batch=4, seq=64, device=cuda)
+        plain_step, sharded_step = build_train_step(spec, optim, 2), build_train_step(spec, optim, 2, mesh=mesh)
+        for _ in range(2):
+            state, m = plain_step(state, batch)
+            sharded, ms = sharded_step(sharded, batch)
+            assert {k: float(v) for k, v in ms.items()} == {k: float(v) for k, v in m.items()}
+        assert sharded["opt"].step == state["opt"].step == 2
+        for group in ("params", "residual"):
+            for n, t in state[group].items():
+                assert torch.equal(local(sharded[group][n]), t.detach()), (group, n)
+        for field in ("mu", "nu", "master"):
+            for n, t in getattr(state["opt"], field).items():
+                assert torch.equal(local(getattr(sharded["opt"], field)[n]), t), (field, n)
+    finally:
+        dist.destroy_process_group()

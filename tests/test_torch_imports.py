@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of repro_torch (the
-encoder-decoder, RWKV6, Mamba2 and step-builder modules, and the training
-path's optimizer, data, checkpoint and launcher modules among them), and
+encoder-decoder, RWKV6, Mamba2 and step-builder modules, the training
+path's optimizer, data, checkpoint and launcher modules, and the sharding,
+mesh and dry-run modules among them), and
 chip_smoke.py, pulls in neither JAX nor the JAX package nor ml_dtypes (the
 card's machine has none), and builds nothing."""
 import os
@@ -22,7 +23,9 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxl
 new = ["repro_torch.models.encdec", "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
        "repro_torch.launch.steps", "repro_torch.optim", "repro_torch.optim.adamw",
        "repro_torch.optim.grad_compress", "repro_torch.optim.schedules", "repro_torch.data.pipeline",
-       "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train"]
+       "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
+       "repro_torch.distributed", "repro_torch.distributed.sharding", "repro_torch.distributed.groups",
+       "repro_torch.launch.mesh", "repro_torch.launch.dryrun"]
 assert all(name in names for name in new), names
 print(len(names), bad)
 """
