@@ -88,6 +88,28 @@ Phases (any failure exits non-zero; so does a missing card):
      parameter equal phase 7's bit for bit; then one more step, timed. Flash
      launches exactly 224 a step, all tensor-core. Prints both steps' times,
      the peak memory and the dry run's bytes beside the card's.
+  9. split training — the split train step (``build_train_step(mesh=)``
+     for the dense family: per-layer FSDP gathers, Megatron TP over "model"
+     for heads, ffn and vocab) on a (data 1, model 2) mesh: two processes
+     on the one card (``torch.multiprocessing`` spawn) over gloo with CUDA
+     tensors, since NCCL refuses two ranks on one device. Phase 7's state,
+     drawn again from its seed, placed by ``shard_train_state``: each rank's
+     allocation grows by the dry run's per-device state bytes with the
+     residual on (1, 2) within DRYRUN_MEM_RTOL. Phase 7's step 0 without
+     compression, then one step with it: step 0's loss and grad norm within
+     SPLIT_LOSS_RTOL / SPLIT_GNORM_RTOL of phase 7's step 0; each rank's
+     shard of each leaf's mu within SPLIT_MU_TOL (gains and biases
+     SPLIT_MU_TOL_SUMS) of the leaf's max in phase 7's; every updated bf16
+     parameter whose mu agrees in sign with phase 7's (both above
+     SPLIT_MU_FLOOR) within SPLIT_ULPS of its ulps of phase 7's, and the
+     count of differing elements printed (phase 7's params and mu shared
+     with the ranks through CUDA IPC; each element counted once); flash
+     launches 224 a step on each rank, all tensor-core, at (1, 4096, 8,
+     128) / KV 4; each rank's peak below phase 8's; the compressed step's
+     loss finite. Prints each rank's step ms: gloo stages every collective
+     through the host, so these time host staging, not TP over NVLink.
+     Rank 0's step 0 runs under the profiler: its kernels' busy ms beside
+     the step's.
 
 The line before the last is the card as nvidia-smi names it, the one
 before that a JSON object with one entry per kernel, and the last line
@@ -159,10 +181,42 @@ TRAIN_LEAF_TOL = 2e-2
 # allocation (the caching allocator rounds each block up to 512 bytes)
 DRYRUN_MEM_RTOL = 5e-3
 SHARDED_PATH = f"train sharded 1x1 {TRAIN_ARCH}"
-# flash attention at the train shape (forward and backward), and its
-# backward at phase 6's shapes too
+# phase 9: the split step on (data 1, model 2), two ranks on the one card
+SPLIT_MESH = (1, 2)
+SPLIT_PATH = f"train split 1x2 {TRAIN_ARCH}"
+SPLIT_TIMEOUT_S = 900  # a gloo collective that waits longer fails the rank
+# step 0 against phase 7's: TP sums each block's partial products over the
+# two ranks (in fp32), which moves bf16 activations by an ulp here and
+# there. About 10x the largest gaps of the split step to the unsharded
+# step in tests/test_torch_tensor_parallel.py at reduced width (loss
+# 1.96e-6, grad norm 5.52e-4, measured on the CPU)
+SPLIT_LOSS_RTOL = 2e-5
+SPLIT_GNORM_RTOL = 5e-3
+# mu after step 0 is (1 - b1) x the clipped gradient: each rank's shard of
+# each leaf within these fractions of the whole leaf's max |value| in phase
+# 7's (the CPU tests' tolerances: MU_TOL, and 5e-2 for the leaves with at
+# most one axis besides "layers", the gains and biases, whose gradients sum
+# bf16 products over every position). Phase 7's mu reaches the ranks in
+# bf16, 2^-9 of each value at most. A sum over "model" left out leaves a
+# leaf's mu off by about half its max.
+SPLIT_MU_TOL, SPLIT_MU_TOL_SUMS = 2e-2, 5e-2
+# AdamW's first step moves a master by lr x mu / (|mu| + eps'): where the
+# two sides' mu agree in sign and both exceed SPLIT_MU_FLOOR (eps' under
+# 1e-2 of |mu|), the two masters part by under 1e-2 lr, so each updated
+# bf16 parameter there lies within SPLIT_ULPS of its ulps (a rounding on
+# each side) + SPLIT_MASTER_ABS of phase 7's; the absolute term holds a
+# parameter that ends near 0, whose ulps are tiny (measured on an H100: up
+# to 24,611 ulps apart where mu agrees, within 0.352 of this allowance).
+# Elsewhere the two may part by up to 2 lr: counted and printed, not held.
+SPLIT_MU_FLOOR = 1e-7
+SPLIT_ULPS = 2
+SPLIT_MASTER_ABS = 1e-2 * TRAIN_LR
+SPLIT_PEAK_LIMIT = 52.80e9  # phase 8's peak on one rank (measured on one H100)
+# flash attention at the train shape (forward and backward), at a split
+# rank's heads, and its backward at phase 6's shapes too
 FLASH_TRAIN_SHAPE = ("qwen3-1.7b train", 1, 4096, 4096, 16, 8, 128, True)
-FLASH_BWD_SHAPES = (FLASH_TRAIN_SHAPE,) + FLASH_FAMILY_SHAPES
+FLASH_SPLIT_SHAPE = ("qwen3-1.7b train split 1x2, a rank's heads", 1, 4096, 4096, 8, 4, 128, True)
+FLASH_BWD_SHAPES = (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE) + FLASH_FAMILY_SHAPES
 # the backward's dq, dk, dv: besides TOL's allclose, each tensor within this
 # fraction of its max |value| (the CPU tests' bf16 bound)
 TOL_BWD_REL = 1e-2
@@ -613,8 +667,9 @@ def check_kernels(full):
 
 
 def check_flash_family_shapes():
-    """Phase 3, flash attention at phase 6's shapes and the train shape
-    (bf16, tensor-core route): rows for the flash entry's ``extra``."""
+    """Phase 3, flash attention at phase 6's shapes, the train shape and a
+    split rank's train shape (bf16, tensor-core route): rows for the flash
+    entry's ``extra``."""
     from repro_torch.kernels import reset_launch_counts, route_counts
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -623,7 +678,7 @@ def check_flash_family_shapes():
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE,):
+    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE):
         fq = torch.randn((B, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
         fk, fv = (torch.randn((B, S_kv, KV, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         reset_launch_counts()
@@ -1081,7 +1136,7 @@ def check_flash_backward():
 def train(card):
     """Phase 7 (b): full-width qwen3-1.7b through ``build_train_step``.
     Returns (flash launches of the training run, its routes, step 0: its
-    metrics and the updated bf16 params on the host)."""
+    metrics, the updated bf16 params and mu in bf16, on the host)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1163,7 +1218,8 @@ def train(card):
             raise AssertionError(f"step {i}: params are not bf16(master)")
         if i == 0:
             step0 = {"metrics": {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()},
-                     "params": {n: p.detach().to("cpu") for n, p in state["params"].items()}}
+                     "params": {n: p.detach().to("cpu") for n, p in state["params"].items()},
+                     "mu": {n: m.to("cpu", torch.bfloat16) for n, m in state["opt"].mu.items()}}
             dl, dg = abs(m["loss"] - ref_loss) / ref_loss, abs(m["grad_norm"] - ref_gnorm) / ref_gnorm
             print(f"  plain-attention step 0: loss {ref_loss:.5f} grad_norm {ref_gnorm:.5f}; relative gap loss "
                   f"{dl:.3g} (tol {TRAIN_LOSS_RTOL}), grad_norm {dg:.3g} (tol {TRAIN_GNORM_RTOL})")
@@ -1330,6 +1386,199 @@ def distribution(card, step0):
     return counts, routes
 
 
+def split_rank(rank: int, port: int, ref, queue) -> None:
+    """One rank of phase 9 (a spawned process on device 0): phase 7's state
+    on the (1, 2) mesh, step 0 (rank 0's under the profiler) and a
+    compressed step 1. ``ref``: phase 7's step-0 params and mu on the card
+    (CUDA IPC). Puts its numbers on ``queue``; raises on a failure, which
+    fails the phase."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import OptimConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch.steps import build_train_step, shard_train_state
+    from repro_torch.models import dense
+    from repro_torch.models.api import ModelSpec
+    from repro_torch.models.common import flat_leaves
+    from repro_torch.optim.adamw import adamw_init
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=SPLIT_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", SPLIT_MESH, mesh_dim_names=("data", "model"))
+        cfg = get_config(TRAIN_ARCH)
+        spec = ModelSpec(cfg)
+        sums = {name for name, leaf in flat_leaves(spec.schema()) if sum(a != "layers" for a in leaf.axes) <= 1}
+        data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+        optim = OptimConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS + 1)
+        params = {n: p.cpu() for n, p in spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev).items()}
+        host = {"params": params, "opt": adamw_init(params),
+                "residual": {n: torch.zeros(p.shape, dtype=torch.float32) for n, p in params.items()}}
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        state = shard_train_state(spec, host, mesh)
+        out = {"rank": rank, "grown": torch.cuda.memory_allocated() - before, "steps": []}
+        del host, params
+        steps = [build_train_step(spec, optim, TRAIN_ACCUM, mesh=mesh),
+                 build_train_step(spec, dataclasses.replace(optim, compress_grads=True), TRAIN_ACCUM, mesh=mesh)]
+        shapes = {}
+
+        def recording(q, k, v, *, causal=True):
+            key = f"{tuple(q.shape)} / KV {k.shape[2]}"
+            shapes[key] = shapes.get(key, 0) + 1
+            return flash(q, k, v, causal=causal)
+
+        flash, dense.flash_attention = dense.flash_attention, recording
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        sizes, coord = sharding.mesh_shape(mesh), sharding.mesh_coordinate(mesh)
+        for i, step in enumerate(steps):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(i).items()}
+            flash_before, tc_before = launch_counts()["flash_attention"], route_counts()["tensor_core"]
+            traced = i == 0 and rank == 0
+            dist.barrier()  # both ranks start the step together (rank 0 reads its profile after step 0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced \
+                    else contextlib.nullcontext() as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            out["steps"].append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                                 "ms": ms, "flash": launch_counts()["flash_attention"] - flash_before,
+                                 "tensor_core": route_counts()["tensor_core"] - tc_before})
+            if traced:  # this rank's kernels on the card (rank 1's share it)
+                on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                             and not e.name.startswith("gloo:")]  # not gloo's annotations of its copies
+                if not on_device:
+                    raise AssertionError("the profiler saw no device op in the split step")
+                by_name = {}
+                for e in on_device:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                copies = [e for e in on_device if e.name.startswith("Memcpy")]
+                out["profile"] = {"busy_ms": union_ms(on_device), "device_ops": len(on_device),
+                                  "copies_ms": union_ms(copies) if copies else 0.0, "copies": len(copies),
+                                  "top": sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]}
+            if i == 0:  # this rank's shards against phase 7's step 0; each element counted on its first replica
+                mu_gaps, ulps, excess, held, differ, total = {}, 0, 0.0, 0, 0, 0
+                for name, p in state["params"].items():
+                    spec_ = sharding.spec_of(p)
+                    sl = sharding.shard_slices(ref["params"][name].shape, spec_, sizes, coord)
+                    mine, want = sharding.local(p).detach(), ref["params"][name][sl]
+                    mine_mu, want_mu = sharding.local(state["opt"].mu[name]), ref["mu"][name][sl].float()
+                    scale = float(ref["mu"][name].float().abs().max())
+                    mu_gaps[name] = float((mine_mu - want_mu).abs().max()) / max(scale, 1e-30)
+                    same = (torch.sign(mine_mu) == torch.sign(want_mu)) & \
+                        (torch.minimum(mine_mu.abs(), want_mu.abs()) > SPLIT_MU_FLOOR)
+                    if same.any():
+                        a, b = mine[same], want[same]
+                        ulps = max(ulps, bf16_ulps(a, b))
+                        a, b = a.float(), b.float()
+                        ulp = torch.ldexp(torch.ones_like(a), torch.frexp(torch.maximum(a.abs(), b.abs())).exponent - 8)
+                        excess = max(excess, float(((a - b).abs() / (SPLIT_ULPS * ulp + SPLIT_MASTER_ABS)).max()))
+                        del a, b, ulp
+                    if sharding.is_first_replica(spec_, sizes, coord):
+                        held += int(same.sum())
+                        differ += int((mine != want).sum())
+                        total += mine.numel()
+                out.update(mu_gaps=mu_gaps, mu_tols={n: SPLIT_MU_TOL_SUMS if n in sums else SPLIT_MU_TOL
+                                                     for n in mu_gaps},
+                           ulps=ulps, excess=excess, held=held, differ=differ, elements=total)
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["shapes"] = shapes
+        out["launches"] = launch_counts()
+        out["routes"] = route_counts()
+        queue.put(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def split_training(card, step0):
+    """Phase 9: phase 7's step 0 through the split step on (1, 2), two
+    ranks on the one card over gloo. Returns (flash launches summed over
+    the ranks, tensor-core launches, each rank's results)."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.dryrun import cell_bytes
+
+    dry = cell_bytes(TRAIN_ARCH, "train_4k", dict(zip(("data", "model"), SPLIT_MESH)))
+    want_bytes = dry["bytes"]["state"] + dry["bytes"]["residual"]
+    ref = {part: {n: t.to("cuda") for n, t in step0[part].items()} for part in ("params", "mu")}
+    queue = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    mp.spawn(split_rank, args=(free_port(), ref, queue), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = sorted((queue.get() for _ in range(2)), key=lambda r: r["rank"])
+    del ref
+    torch.cuda.empty_cache()
+    want_m = step0["metrics"]
+    print(f"  two ranks on {card}, gloo with CUDA tensors, mesh (data 1, model 2); {wall:.1f} s with the ranks' start")
+    per_step = TRAIN_FLASH_PER_STEP
+    for r in ranks:
+        gap = abs(r["grown"] - want_bytes) / want_bytes
+        s0, s1 = r["steps"]
+        dl = abs(s0["loss"] - want_m["loss"]) / want_m["loss"]
+        dg = abs(s0["grad_norm"] - want_m["grad_norm"]) / want_m["grad_norm"]
+        print(f"  rank {r['rank']}: dry run {want_bytes / 1e9:.3f} GB state + residual a device, allocation grew "
+              f"{r['grown'] / 1e9:.3f} GB: gap {gap:.2e} (tol {DRYRUN_MEM_RTOL})")
+        worst = sorted(r["mu_gaps"], key=lambda n: -r["mu_gaps"][n] / r["mu_tols"][n])[:4]
+        print(f"  rank {r['rank']}: step 0 loss {s0['loss']:.6f} grad_norm {s0['grad_norm']:.6f} (phase 7: "
+              f"{want_m['loss']:.6f} {want_m['grad_norm']:.6f}; gaps {dl:.3g} (tol {SPLIT_LOSS_RTOL}), {dg:.3g} "
+              f"(tol {SPLIT_GNORM_RTOL})); mu of each leaf against phase 7's, of its max (tol {SPLIT_MU_TOL}, "
+              f"gains and biases {SPLIT_MU_TOL_SUMS}), the largest: "
+              + ", ".join(f"{n} {r['mu_gaps'][n]:.3g}" for n in worst))
+        print(f"  rank {r['rank']}: bf16 params: {r['differ']} of {r['elements']} elements differ from phase 7's; "
+              f"where mu agrees in sign above {SPLIT_MU_FLOOR} ({r['held']} elements) the largest gap "
+              f"{r['excess']:.3f} of its allowance ({SPLIT_ULPS} ulps + {SPLIT_MASTER_ABS:g}), {r['ulps']} ulps "
+              f"at most")
+        if "profile" in r:
+            p = r["profile"]
+            print(f"  rank {r['rank']}: profiled step 0: its device ops busy {p['busy_ms']:.1f} ms of {s0['ms']:.1f} "
+                  f"({p['device_ops']} ops, of which gloo's {p['copies']} device-host copies {p['copies_ms']:.1f} ms; "
+                  f"idle share {1 - p['busy_ms'] / s0['ms']:.3f}: gloo's host staging and waits, and rank 1's "
+                  f"kernels on the same card); by name: "
+                  + ", ".join(f"{name[:48]} {ms:.1f}" for name, ms in p["top"]))
+        print(f"  rank {r['rank']}: step 0 {s0['ms']:.1f} ms{' (profiled)' if 'profile' in r else ''}, step 1 "
+              f"(compressed) {s1['ms']:.1f} ms, loss "
+              f"{s1['loss']:.6f} — gloo stages every collective through the host: host staging, not TP over "
+              f"NVLink; flash launches {s0['flash']} + {s1['flash']} at {r['shapes']}; peak "
+              f"{r['peak'] / 1e9:.2f} GB (limit {SPLIT_PEAK_LIMIT / 1e9:.2f}) — on {card}")
+        if gap > DRYRUN_MEM_RTOL:
+            raise AssertionError(f"rank {r['rank']}: the dry run's state bytes are not the card's allocation")
+        if dl > SPLIT_LOSS_RTOL or dg > SPLIT_GNORM_RTOL:
+            raise AssertionError(f"rank {r['rank']}: the split step 0's loss or grad norm is not phase 7's")
+        off = {n: g for n, g in r["mu_gaps"].items() if not g <= r["mu_tols"][n]}
+        if off:
+            raise AssertionError(f"rank {r['rank']}: the split step 0's mu is not phase 7's in {off}")
+        if not (r["excess"] <= 1.0 and r["held"]):
+            raise AssertionError(f"rank {r['rank']}: where mu agrees the params are {r['excess']:.3f} of their "
+                                 f"allowance from phase 7's ({r['held']} elements held)")
+        want_shape = f"{(1, TRAIN_SEQ, FLASH_SPLIT_SHAPE[4], 128)} / KV {FLASH_SPLIT_SHAPE[5]}"
+        if any(x["flash"] != per_step or x["tensor_core"] != per_step for x in r["steps"]) or \
+                r["shapes"] != {want_shape: 2 * per_step}:
+            raise AssertionError(f"rank {r['rank']}: flash launches {r['steps']}, shapes {r['shapes']}; want "
+                                 f"{per_step} a step, all tensor-core, at {want_shape}")
+        if not r["peak"] < SPLIT_PEAK_LIMIT:
+            raise AssertionError(f"rank {r['rank']}: peak {r['peak'] / 1e9:.2f} GB is not below phase 8's")
+        if not np.isfinite([s0["loss"], s1["loss"]]).all():
+            raise AssertionError(f"rank {r['rank']}: losses not finite")
+        if any(n for name, n in r["launches"].items() if name != "flash_attention"):
+            raise AssertionError(f"rank {r['rank']}: the split step launched other kernels: {r['launches']}")
+    return (sum(r["launches"]["flash_attention"] for r in ranks), sum(r["routes"]["tensor_core"] for r in ranks),
+            ranks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1374,8 +1623,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("distribution"):
         counts_sharded, routes_sharded = distribution(card, step0)
-    del step0
     torch.cuda.empty_cache()
+    with phase("split training"):
+        flash_split, tc_split, split_ranks = split_training(card, step0)
+    torch.cuda.empty_cache()
+    del step0
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
             "library_device_ms")
@@ -1400,7 +1652,8 @@ def main() -> int:
                            "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in extra]
         entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name],
                                      **{arch: c[name] for arch, c in counts_family.items()},
-                                     f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name]}
+                                     f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name],
+                                     SPLIT_PATH: flash_split if name == "flash_attention" else 0}
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
     kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS
@@ -1408,8 +1661,11 @@ def main() -> int:
     kernels[3]["tensor_core_launches"] = routes["tensor_core"]
     kernels[3]["tensor_core_launches_by_path"] = {full.name: routes["tensor_core"], moe_full.name: routes_moe["tensor_core"],
                                                   f"train {TRAIN_ARCH}": routes_train["tensor_core"],
-                                                  SHARDED_PATH: routes_sharded["tensor_core"]}
+                                                  SHARDED_PATH: routes_sharded["tensor_core"], SPLIT_PATH: tc_split}
     kernels[3]["launches_per_train_step"] = TRAIN_FLASH_PER_STEP
+    kernels[3]["split_launches_per_rank_per_step"] = {f"rank {r['rank']}": [x["flash"] for x in r["steps"]]
+                                                      for r in split_ranks}
+    kernels[3]["split_shape_per_rank"] = FLASH_SPLIT_SHAPE[0] + ": (1, 4096, 8, 128) / KV 4 causal"
     kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
                                "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
                                "bound_ms": x["bound"][0], "bound_by": x["bound"][1],

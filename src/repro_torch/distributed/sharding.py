@@ -18,15 +18,25 @@ The spec functions are pure functions of the mesh's axis sizes: a mesh is a
 mesh), or such a mapping itself. torch has no PartitionSpec, so
 ``PartitionSpec`` here is a tuple of one entry per tensor dim: None, an axis
 name, or a tuple of axis names (the first one major), as JAX's.
+
+The split train step computes in another layout than it stores:
+``compute_spec`` is a leaf's storage spec with the data axes dropped (what
+JAX's ``use_weight`` constrains a weight to at its use site), and
+``head_route`` gives the head-aligned q and KV heads a rank on the "model"
+axis computes, where JAX's flattened split of ``H * hd`` may cut a head.
 """
 from __future__ import annotations
 
 import math
+import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.models.common import flat_leaves
+
+DATA_AXES = ("pod", "data")  # the data-parallel mesh axes, pod major
+MODEL_AXIS = "model"
 
 DEFAULT_RULES: Dict[str, Any] = {
     "layers": None,
@@ -234,10 +244,27 @@ def distribute(t: torch.Tensor, mesh, spec):
 
 def gather(t: torch.Tensor) -> torch.Tensor:
     """The whole tensor of a DTensor (a collective over its mesh), as a plain
-    tensor; a plain tensor as it is."""
+    tensor; a plain tensor as it is. With gloo on CUDA tensors (ranks
+    sharing one card), where torch's ``full_tensor`` kills the process
+    (SIGSEGV on torch 2.11.0+cu128, ``scripts/gloo_cuda_probe.py``), each
+    shard's first replica writes it into a zero tensor that is summed over
+    every process (the mesh must span them all): exact."""
+    import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    if not isinstance(t, DTensor):
+        return t
+    if not (t.to_local().is_cuda and dist.get_backend() == "gloo"):
+        return t.full_tensor()
+    mesh = t.device_mesh
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("gather: a mesh over gloo on CUDA must span every process")
+    spec, sizes, coord = spec_of(t), mesh_shape(mesh), mesh_coordinate(mesh)
+    whole = torch.zeros(t.shape, dtype=t.dtype, device=t.to_local().device)
+    if is_first_replica(spec, sizes, coord):
+        whole[shard_slices(t.shape, spec, sizes, coord)] = t.to_local()
+    dist.all_reduce(whole)
+    return whole
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -246,3 +273,56 @@ def local(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def compute_spec(spec) -> PartitionSpec:
+    """JAX's ``use_weight`` target: ``spec`` with the data axes dropped, so
+    that the weight is split over "model" only."""
+    return P(*[tuple(a for a in _names(e) if a not in DATA_AXES) for e in spec])
+
+
+def split_dim(spec, axis: str) -> Optional[int]:
+    """The tensor dim ``spec`` splits over mesh axis ``axis``, or None."""
+    for dim, entry in enumerate(spec):
+        if axis in _names(entry):
+            return dim
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadRoute:
+    """The heads one rank on the "model" axis computes attention for.
+
+    ``route``: "local" (its q heads and their KV heads are its shards of
+    ``wq`` and ``wk``/``wv``), "kv_gather" (its q heads are its shard; the
+    KV heads they read are cut by the split or not split at all, so ``wk``
+    and ``wv`` are gathered over "model" and the heads ``kv`` taken) or
+    "replicated" (the q heads do not divide over "model": every rank
+    computes every head). ``q`` and ``kv``: [start, stop) head ranges.
+    ``kv_of_q``: for each local q head, its KV head's index in the ``kv``
+    range, where the local heads do not form whole GQA groups (None where
+    the flash kernel's own mapping, q head h reads KV head h // group,
+    holds)."""
+
+    route: str
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+    kv_of_q: Optional[Tuple[int, ...]] = None
+
+
+def head_route(n_heads: int, n_kv_heads: int, size: int, index: int, q_split: bool, kv_split: bool) -> HeadRoute:
+    """The heads of rank ``index`` of ``size`` on "model". ``q_split`` /
+    ``kv_split``: whether ``wq``'s / ``wk``'s compute spec splits its heads
+    dim over "model" (JAX's divisibility rule splits ``H * hd``, which may
+    cut a head: then the q heads take the replicated route, and the KV
+    heads are gathered)."""
+    if not q_split or n_heads % size:
+        return HeadRoute("replicated", (0, n_heads), (0, n_kv_heads))
+    group = n_heads // n_kv_heads
+    per = n_heads // size
+    q0, q1 = index * per, (index + 1) * per
+    kv = (q0 // group, (q1 - 1) // group + 1)
+    route = "local" if kv_split and n_kv_heads % size == 0 else "kv_gather"
+    uniform = (per % group == 0 and q0 % group == 0) or group % per == 0
+    kv_of_q = None if uniform else tuple(h // group - kv[0] for h in range(q0, q1))
+    return HeadRoute(route, (q0, q1), kv, kv_of_q)

@@ -13,21 +13,39 @@ process group and no data:
     the error-feedback residual by ``param_specs``; of the step's inputs by
     ``batch_spec``, and of a decode cell's cache by ``cache_pspec``, both
     through ``filter_spec_for_mesh``;
-  * the bytes the port's step holds beyond its state: the gathered bf16
-    params (every cell: the port gathers the whole model onto each device)
-    and, in a train cell, the whole fp32 gradient sum; whether state +
-    inputs + cache + those fit in ``--device-bytes`` (default 80e9, one
-    NVIDIA H100 80GB HBM3). Activations are not counted: a cell that does
-    not fit here does not fit at all, one that fits may still not;
+  * the bytes the port's step holds beyond its state. A train cell of the
+    dense, moe and vlm families (``launch/steps.py::SPLIT_FAMILIES``; the
+    split step): ``gathered_params``, the weights gathered at once (the
+    largest layer's compute shards, gathered over "data", with the whole
+    attention projections a ``head_route`` gathers over "model", plus the
+    compute shards of the embedding, ``lm_head`` and the other leaves
+    outside the layers; a leaf the data axes do not split is computed on a
+    view of its shard and adds nothing), and ``grad_sum``, the fp32
+    gradient sum of the rank's shards. Any other cell: the whole bf16 model
+    (the other families' sharded step, and the unsharded prefill and
+    decode, gather it onto each device) and, in a train cell, the whole
+    fp32 gradient sum. ``fits``: state + inputs + cache + those within
+    ``--device-bytes`` (default 80e9, one NVIDIA H100 80GB HBM3).
+    Activations are not counted: a cell that does not fit here does not
+    fit at all, one that fits may still not;
   * per-device FLOPs of one step: ``torch.utils.flop_counter.FlopCounterMode``
     over one microbatch of the device's rows on meta (a train cell: loss,
     backward and the remat recompute; the MoE routes over the global
-    microbatch as in the sharded step), times ``accum_steps``;
-  * per-device collective bytes of the port's step, from the layout: one
-    gather of the params (bytes received) and, in a train cell, one ring
-    all-reduce of the fp32 gradient sum over the data-parallel ranks.
+    microbatch as in the sharded step; a split cell with rank 0's local
+    shapes, its collectives keeping shapes), times ``accum_steps``;
+  * per-device collective bytes of one step (bytes one rank sends, ring
+    algorithms). A split train cell, counted on the same meta run:
+    ``fsdp_gather`` (each weight's all-gather over "data" in the forward and
+    the remat recompute), ``grad_reduce`` (each weight's gradient summed
+    over the data-parallel ranks in the backward, in bf16, as an all-reduce
+    plus the own block), ``model`` (over "model": the TP all-reduces of
+    each block's attention and FFN, forward, recompute and backward, the
+    vocab-parallel embedding and cross entropy, EP's combine, and the KV or
+    whole projections a head route gathers); times ``accum_steps``. Any
+    other train cell, from the layout: one gather of the params and one
+    ring all-reduce of the fp32 gradient sum over the data-parallel ranks.
 
-The port has a sharded train step only; a prefill or decode cell counts
+The port has sharded train steps only; a prefill or decode cell counts
 the port's unsharded step on the rows one device would take.
 
 Usage:
@@ -40,19 +58,23 @@ import argparse
 import json
 import math
 import time
+import weakref
 from pathlib import Path
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, SHAPES, OptimConfig, ShapeConfig, get_config, shape_applicable
-from repro_torch.distributed.groups import ShapeOnlyRows
-from repro_torch.distributed.sharding import batch_spec, filter_spec_for_mesh, local_bytes, local_shape, param_specs
+from repro_torch.distributed.groups import DataParallelWeights, ModelParallel, ShapeOnlyGroup, ShapeOnlyRows
+from repro_torch.distributed.sharding import (MODEL_AXIS, batch_spec, compute_spec, filter_spec_for_mesh, head_route,
+                                              local_bytes, local_shape, param_specs, split_dim)
 from repro_torch.launch.mesh import dp_size, production_mesh_shape
-from repro_torch.launch.steps import abstract_train_state, build_prefill_step, build_serve_step, build_train_step
+from repro_torch.launch.steps import (SPLIT_FAMILIES, abstract_train_state, build_prefill_step, build_serve_step,
+                                      build_train_step)
 from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
+from repro_torch.models.common import flat_leaves
 
 DEVICE_NAME = "NVIDIA H100 80GB HBM3"
 DEVICE_BYTES = 80e9
@@ -85,6 +107,69 @@ def _device_rows(batch: int, mesh) -> int:
     return local_shape((batch,), filter_spec_for_mesh(batch_spec(mesh), mesh, (batch,)), mesh)[0]
 
 
+class CountingWeights(DataParallelWeights):
+    """``DataParallelWeights`` that counts the bytes of gathered weights
+    alive at once: each gather over "data" is counted until its result is
+    freed, and ``peak`` is the most at any time. A view of the shard (a leaf
+    the data axes do not split, or one "data" rank) adds nothing."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.alive = self.peak = 0
+
+    def gather(self, w: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        out = super().gather(w, dim)
+        if dim is not None and self.data_size > 1:
+            n = out.numel() * out.element_size()
+            self.alive += n
+            self.peak = max(self.peak, self.alive)
+            weakref.finalize(out, self._free, n)
+        return out
+
+    def _free(self, n: int) -> None:
+        self.alive -= n
+
+
+def is_split(cfg, shape: ShapeConfig) -> bool:
+    """Whether the cell's step is the split train step."""
+    return shape.kind == "train" and cfg.family in SPLIT_FAMILIES
+
+
+def _attention_route(cfg, specs, mesh: Mapping[str, int]):
+    """Rank 0's ``head_route`` on the mesh (None without a "model" axis of
+    more than one rank)."""
+    size = mesh.get(MODEL_AXIS, 1)
+    if size == 1:
+        return None
+    split = lambda name: split_dim(compute_spec(specs[name]), MODEL_AXIS) is not None  # noqa: E731
+    return head_route(cfg.n_heads, cfg.n_kv_heads, size, 0, split("blocks.wq"), split("blocks.wk"))
+
+
+def split_gathered_bytes(cfg, mesh: Mapping[str, int]) -> int:
+    """The split step's weights gathered at once on a device: the largest
+    layer's compute shards, with the whole projections its head route
+    gathers over "model" ("replicated": wq, wk, wv, wo and the biases;
+    "kv_gather": wk, wv, bk, bv), plus the compute shards of every leaf
+    outside the layers. A leaf the data axes do not split is computed on a
+    view of its shard: 0 bytes."""
+    spec = ModelSpec(cfg)
+    specs = param_specs(spec.schema(), mesh)
+    route = _attention_route(cfg, specs, mesh)
+    gathered_whole = {"replicated": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+                      "kv_gather": ("wk", "wv", "bk", "bv")}.get(route.route if route else None, ())
+    layer = outside = 0
+    for name, leaf in flat_leaves(spec.schema()):
+        compute = math.prod(local_shape(leaf.shape, compute_spec(specs[name]), mesh)) * 2
+        n = compute if compute > local_bytes(leaf.shape, 2, specs[name], mesh) else 0
+        if leaf.axes[0] != "layers":
+            outside += n
+            continue
+        layer += n // leaf.shape[0]
+        if name.split(".", 1)[1] in gathered_whole:
+            layer += math.prod(leaf.shape[1:]) * 2
+    return layer + outside
+
+
 def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int]) -> Dict[str, Any]:
     """The byte columns of one cell on the mesh ``{axis: size}`` (no data)."""
     cfg, shape = get_config(arch), SHAPES[shape_name]
@@ -105,17 +190,22 @@ def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int]) -> Dict[str,
         extra["grad_sum"] = sum(_nbytes(t) for t in opt.master.values())
     else:
         rec["opt"] = 0
+    split = is_split(cfg, shape)
+    if split:
+        extra = {"gathered_params": split_gathered_bytes(cfg, mesh), "grad_sum": per(opt.master)}
     if cache is not None:
         cspec = spec.cache_pspec()
         rec["cache"] = sum(local_bytes(t.shape, t.element_size(), filter_spec_for_mesh(cspec[k], mesh, t.shape), mesh)
                            for k, t in cache.items())
     rec["state"] = rec["params"] + rec["opt"]
-    dp = dp_size(mesh)
-    collectives = {"param_gather": whole_params - params}
-    if shape.kind == "train":
-        collectives["grad_all_reduce"] = int(2 * (dp - 1) / dp * extra["grad_sum"])
-    return {"bytes": rec, "port_step_bytes": extra, "collective_bytes": collectives,
-            "total_bytes": rec["state"] + rec["inputs"] + rec.get("cache", 0) + sum(extra.values())}
+    out = {"bytes": rec, "port_step_bytes": extra,
+           "total_bytes": rec["state"] + rec["inputs"] + rec.get("cache", 0) + sum(extra.values())}
+    if not split:  # a split cell's are counted on its meta run (``cell_flops``)
+        dp = dp_size(mesh)
+        out["collective_bytes"] = {"param_gather": whole_params - params}
+        if shape.kind == "train":
+            out["collective_bytes"]["grad_all_reduce"] = int(2 * (dp - 1) / dp * extra["grad_sum"])
+    return out
 
 
 def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") -> Dict[str, Any]:
@@ -125,6 +215,10 @@ def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") 
     data), or a real device, to count the same work computed."""
     spec = ModelSpec(cfg)
     dev = torch.device(device)
+    if is_split(cfg, shape) and math.prod(mesh.values()) > 1:
+        if dev.type != "meta":
+            raise ValueError("a split train cell is counted on the meta device only")
+        return _split_flops(spec, shape, mesh)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(0)
     params = spec.abstract_params() if gen is None else spec.init(gen, device=dev)
     for p in params.values():
@@ -162,6 +256,36 @@ def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") 
             **({"accum_steps": accum} if shape.kind == "train" else {})}
 
 
+def _split_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int]) -> Dict[str, Any]:
+    """``cell_flops`` of a split train cell: one microbatch of rank 0's rows
+    through the split step's accumulation on meta, its params rank 0's
+    storage shards, its collectives over ``ShapeOnlyGroup``s that count the
+    bytes sent; FLOPs and bytes times the microbatch count. Also the most
+    weight bytes ``use_weight`` held gathered at once."""
+    cfg = spec.cfg
+    specs = param_specs(spec.schema(), mesh)
+    stacked = {n for n, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
+    params = {n: torch.empty(local_shape(t.shape, specs[n], mesh), dtype=t.dtype, device="meta").requires_grad_(True)
+              for n, t in spec.abstract_params().items()}
+    dp = dp_size(mesh)
+    data, dp_group, model = ShapeOnlyGroup(mesh.get("data", 1)), ShapeOnlyGroup(dp), ShapeOnlyGroup(mesh.get(MODEL_AXIS, 1))
+    weights = CountingWeights(data, data.size, 0, dp_group, dp)
+    tp = ModelParallel(model, model.size, 0) if model.size > 1 else None
+    split = layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, tp)
+    accum = accum_steps(cfg, shape, mesh)
+    rows = shape.global_batch // accum // dp
+    batch = {k: torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device="meta")
+             for k, t in spec.input_specs(shape).items()}
+    counter = FlopCounterMode(display=False)
+    step = build_train_step(spec, OptimConfig(), accum_steps=1)
+    with layers.data_parallel_rows(ShapeOnlyRows(dp)), layers.split_compute(split), counter:
+        step.grads_and_loss(params, batch)
+    return {"flops": counter.get_total_flops() * accum, "rows_per_device": rows, "accum_steps": accum,
+            "collective_bytes": {"fsdp_gather": int(data.sent * accum), "grad_reduce": int(dp_group.sent * accum),
+                                 "model": int(model.sent * accum)},
+            "use_weight_peak_bytes": weights.peak}
+
+
 def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float = DEVICE_BYTES) -> Dict[str, Any]:
     mesh = production_mesh_shape(multi_pod=(mesh_kind == "multi"))
     t0 = time.time()
@@ -170,7 +294,9 @@ def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float =
     rec["device"] = DEVICE_NAME if device_bytes == DEVICE_BYTES else "--device-bytes"
     rec["device_bytes"] = device_bytes
     rec["fits"] = rec["total_bytes"] <= device_bytes
-    rec["fits_counts"] = "state + inputs + cache + gathered params + fp32 gradient sum; not activations"
+    rec["fits_counts"] = ("state + inputs + cache + gathered params + fp32 gradient sum (a split train cell: "
+                          "the largest layer's and the outside leaves' gathered weights, the gradient shard); "
+                          "not activations")
     rec.update(cell_flops(get_config(arch), SHAPES[shape_name], mesh))
     rec["count_s"] = round(time.time() - t0, 2)
     return rec

@@ -16,9 +16,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Tuple
 
-from repro_torch.distributed.sharding import mesh_coordinate, mesh_shape
-
-DP_AXES = ("pod", "data")
+from repro_torch.distributed.sharding import DATA_AXES, MODEL_AXIS, mesh_coordinate, mesh_shape
 
 # mesh kind -> (shape, axis names)
 PRODUCTION_MESHES: Dict[str, Tuple[Tuple[int, ...], Tuple[str, ...]]] = {
@@ -50,7 +48,7 @@ def make_host_mesh(device_type: str = "cuda"):
 
 def dp_size(mesh) -> int:
     shape = mesh_shape(mesh)
-    return math.prod(shape[a] for a in DP_AXES if a in shape)
+    return math.prod(shape[a] for a in DATA_AXES if a in shape)
 
 
 def dp_index(mesh) -> int:
@@ -58,7 +56,7 @@ def dp_index(mesh) -> int:
     on ("pod", "data"), pod major (the order of ``batch_spec``'s rows)."""
     shape, coord = mesh_shape(mesh), mesh_coordinate(mesh)
     index = 0
-    for a in DP_AXES:
+    for a in DATA_AXES:
         if a in shape:
             index = index * shape[a] + coord[a]
     return index
@@ -67,7 +65,30 @@ def dp_index(mesh) -> int:
 def dp_group(mesh):
     """The process group of this rank's data-parallel ranks (the same
     "model" coordinate), its group ranks in ``dp_index`` order."""
-    axes = tuple(a for a in DP_AXES if a in mesh_shape(mesh))
+    axes = tuple(a for a in DATA_AXES if a in mesh_shape(mesh))
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     return mesh[axes]._flatten().get_group()
+
+
+def model_size(mesh) -> int:
+    """The size of the "model" axis (1 where the mesh has none)."""
+    return mesh_shape(mesh).get(MODEL_AXIS, 1)
+
+
+def model_index(mesh) -> int:
+    """This rank's coordinate on "model" (0 where the mesh has none)."""
+    return mesh_coordinate(mesh)[MODEL_AXIS] if MODEL_AXIS in mesh_shape(mesh) else 0
+
+
+def model_group(mesh):
+    """The process group of the ranks that share this rank's data-parallel
+    coordinates, in "model" order (None where the mesh has no "model")."""
+    return mesh.get_group(MODEL_AXIS) if MODEL_AXIS in mesh_shape(mesh) else None
+
+
+def data_group(mesh):
+    """The process group along the "data" axis alone (the ranks that share
+    this rank's "pod" and "model" coordinates): the axis a weight's FSDP
+    shards lie on (None where the mesh has no "data")."""
+    return mesh.get_group("data") if "data" in mesh_shape(mesh) else None

@@ -17,15 +17,19 @@ import torch.distributed as dist
 
 from repro_torch.configs import OptimConfig
 from repro_torch.distributed import sharding
-from repro_torch.distributed.groups import DataParallelRows
-from repro_torch.launch.mesh import dp_group, dp_index, dp_size
+from repro_torch.distributed.groups import DataParallelRows, DataParallelWeights, ModelParallel
+from repro_torch.launch.mesh import data_group, dp_group, dp_index, dp_size, model_group, model_index, model_size
 from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
+from repro_torch.models.common import flat_leaves
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, leaf_square_sums, norm_of_sums
 from repro_torch.optim.grad_compress import error_feedback_leaf
 from repro_torch.optim.schedules import cosine_schedule
 
 Tensors = Dict[str, torch.Tensor]
+# the families whose sharded step splits its compute over "model" (the
+# others gather the whole model onto each rank)
+SPLIT_FAMILIES = ("dense", "moe", "vlm")
 
 
 def make_train_state(spec: ModelSpec, generator: torch.Generator, compress: bool = False, device="cuda"):
@@ -87,17 +91,26 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
     (``shard_train_state``, or a restore onto the mesh), and the step is
     JAX's function of the global batch. One step:
 
-    (a) gathers each bf16 parameter once into a plain tensor that requires
-        grad (the port's ``use_weight``; over "model" too);
+    (a) the dense, moe and vlm families (``SPLIT_FAMILIES``) compute in
+        JAX's layout (``layers.split_compute``): the model is given each
+        leaf's local shard, a plain tensor that requires grad, and each
+        weight is gathered over "data" where it is used, inside the remat
+        region (``layers.use_weight``), leaving its "model" shard: Megatron
+        TP for heads, ffn and vocab, EP for the experts. The other families
+        gather each bf16 parameter whole once (over "model" too);
     (b) takes this rank's rows of each microbatch by ``batch_spec``: block
         ``dp_index`` of the microbatch's rows (every rank is given the whole
         global batch; ranks with one data coordinate take the same rows);
     (c) runs the accumulation on them, plain tensors all the way down (the
         kernels see no DTensor), with the MoE routing over the global
         microbatch (``layers.data_parallel_rows``);
-    (d) sums the fp32 gradient over the data-parallel ranks and divides by
-        their count (the global-batch mean); each rank keeps its shard, as
-        the leaf's placements say;
+    (d) sums the gradient over the data-parallel ranks and divides by their
+        count (the global-batch mean); each rank keeps its shard, as the
+        leaf's placements say. Split: the gather's backward sums each
+        microbatch's bf16 gradient over the data-parallel ranks into the
+        rank's shard (GSPMD's reduce-scatter, in the param dtype), and the
+        fp32 sum over microbatches is a sum of shards. Whole: the fp32 sum
+        of the whole gradient is all-reduced, then sliced;
     (e) error feedback with the whole leaf's int8 scale (a max over the
         mesh), then AdamW on the local shards in place, clipped by the norm
         that counts each element once (a shard's sum of squares from its
@@ -143,6 +156,12 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
             dist.all_reduce(t, op=op, group=over)
         return t
 
+    split = mesh is not None and spec.cfg.family in SPLIT_FAMILIES
+    if split:
+        stacked = {name for name, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
+        weights = DataParallelWeights(data_group(mesh), sizes.get("data", 1), coord.get("data", 0), group, dp)
+        tp = ModelParallel(model_group(mesh), model_size(mesh), model_index(mesh)) if model_size(mesh) > 1 else None
+
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         B = batch["tokens"].shape[0]
         if B % accum_steps or (B // accum_steps) % dp:
@@ -153,13 +172,22 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
                for k, v in batch.items()}
         params = state["params"]
         specs = {name: sharding.spec_of(p) for name, p in params.items()}
-        full = {name: sharding.gather(p).detach().requires_grad_(True) for name, p in params.items()}
-        with layers.data_parallel_rows(rows):
-            grads, loss = grads_and_loss(full, own)
-        del full
-        for name in sorted(grads):  # leaf by leaf: the whole fp32 sum gives way to this rank's shard
-            g = reduce(grads[name], over=group).div_(dp)
-            grads[name] = g[sharding.shard_slices(g.shape, specs[name], sizes, coord)].contiguous()
+        if split:
+            local = {name: sharding.local(p).detach().requires_grad_(True) for name, p in params.items()}
+            layout = layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, tp)
+            with layers.data_parallel_rows(rows), layers.split_compute(layout):
+                grads, loss = grads_and_loss(local, own)
+            del local
+            for g in grads.values():  # each a sum of this rank's shards over the data-parallel ranks
+                g.div_(dp)
+        else:
+            full = {name: sharding.gather(p).detach().requires_grad_(True) for name, p in params.items()}
+            with layers.data_parallel_rows(rows):
+                grads, loss = grads_and_loss(full, own)
+            del full
+            for name in sorted(grads):  # leaf by leaf: the whole fp32 sum gives way to this rank's shard
+                g = reduce(grads[name], over=group).div_(dp)
+                grads[name] = g[sharding.shard_slices(g.shape, specs[name], sizes, coord)].contiguous()
         loss = reduce(loss, over=group) / dp
         shards = lambda leaves: {name: sharding.local(t) for name, t in leaves.items()}  # noqa: E731
         if optim.compress_grads:

@@ -62,7 +62,10 @@ class ModelSpec:
         fp32 tensors. A vlm's logits at positions [nf - 1, nf - 1 + S)
         predict its S text tokens; the start is clamped into the logits as
         ``jax.lax.dynamic_slice_in_dim`` clamps it (without a frontend it is
-        0, and each position then scores its own token, as in JAX)."""
+        0, and each position then scores its own token, as in JAX). In a
+        split train step with the logits split over "model" by vocab, the
+        cross entropy is vocab-parallel, in fp32 (``ModelParallel
+        .cross_entropy``)."""
         cfg, tokens = self.cfg, batch["tokens"]
         logits, aux, _ = self.forward(params, tokens, batch.get("frontend"), remat=remat)
         S = tokens.shape[1]
@@ -71,8 +74,12 @@ class ModelSpec:
             pred, targets = logits[:, start:start + S], tokens
         else:
             pred, targets = logits[:, :-1], tokens[:, 1:]
-        logp = torch.log_softmax(pred.float(), dim=-1)
-        ce = -torch.mean(logp.gather(-1, targets.long()[..., None])[..., 0])
+        split = dense.logits_split(cfg) if self.mod is dense else None
+        if split is None:
+            logp = torch.log_softmax(pred.float(), dim=-1)
+            ce = -torch.mean(logp.gather(-1, targets.long()[..., None])[..., 0])
+        else:
+            ce = torch.mean(split[0].cross_entropy(pred, targets, split[1]))
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"ce": ce, "aux": aux, "loss": loss}

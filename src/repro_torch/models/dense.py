@@ -10,6 +10,16 @@ entries; the forward pass is a Python loop over layers. Prefill attention
 runs through the hand-written flash-attention kernel
 (``repro_torch.kernels.flash_attention``) where JAX uses
 ``layers.chunked_attention``.
+
+In a split train step (``layers.split_compute``) the layers compute in
+JAX's layout: each weight is gathered over "data" where it is used
+(``layers.use_weight``, inside the remat region); ``wq``/``wk``/``wv`` are
+column-parallel on whole heads (``sharding.head_route``: the KV heads a
+rank's q heads read are gathered from its neighbours where the split cuts
+them, and q heads that do not divide over "model" are computed on every
+rank), flash attention runs on the local heads, and ``wo`` is row-parallel;
+the FFN and the MoE as ``layers``; the embedding, the logits and the loss
+(``ModelSpec.loss``) are vocab-parallel.
 """
 from __future__ import annotations
 
@@ -18,10 +28,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.distributed.sharding import P
+from repro_torch.distributed.sharding import P, head_route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
-from repro_torch.models.layers import AttnParams, decode_attention, moe_ffn, project_qkv, rmsnorm, swiglu
+from repro_torch.models.layers import (AttnParams, decode_attention, model_split, moe_ffn, project_qkv, qkv_epilogue,
+                                       rmsnorm, split_model, swiglu, use_weight, use_weights)
 
 def schema(cfg: ModelConfig) -> Dict[str, Any]:
     d, L = cfg.d_model, cfg.n_layers
@@ -87,19 +98,58 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, aux: bool = False, expert
     if cfg.family == "moe":
         shared = (p["ws_gate"], p["ws_up"], p["ws_down"]) if cfg.moe.shared_expert else None
         return moe_ffn(cfg, x, p["router"], p["we_gate"], p["we_up"], p["we_down"], shared, aux=aux,
-                       experts=experts)
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+                       experts=experts, ep=model_split("blocks.we_gate", 0),
+                       shared_tp=model_split("blocks.ws_gate", -1) if shared else None)
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"], tp=model_split("blocks.w_gate", -1)), 0.0
+
+
+def _split_attention(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: torch.Tensor):
+    """Attention in a split step: (the layer's attention output (B, S, d),
+    k, v of the heads this rank computed)."""
+    tp = split_model()
+    hd = cfg.resolved_head_dim
+    route = head_route(cfg.n_heads, cfg.n_kv_heads, tp.size, tp.index, model_split("blocks.wq", -1) is not None,
+                       model_split("blocks.wk", -1) is not None)
+    ap = _attn_params(cfg, p)
+    if route.route == "replicated":  # every rank computes every head: the whole projections, gathered
+        def whole(name, w):
+            dim = 0 if name == "wo" else -1  # wo's heads are its rows
+            split = w is not None and model_split(f"blocks.{name}", dim) is not None
+            return tp.gather(w, dim, partial_grad=False) if split else w
+
+        ap = AttnParams(**{n: whole(n, getattr(ap, n)) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
+                        q_norm=ap.q_norm, k_norm=ap.k_norm)
+        q, k, v = project_qkv(cfg, ap, h, positions)
+        o = flash_attention(q, k, v, causal=True)
+        return o.reshape(*o.shape[:2], -1) @ ap.wo, k, v
+    kv = {"wk": ap.wk, "wv": ap.wv, "bk": ap.bk, "bv": ap.bv}
+    if route.route == "kv_gather":  # the whole KV projections; this rank's q heads read heads route.kv
+        cols = slice(route.kv[0] * hd, route.kv[1] * hd)
+        kv = {name: (tp.gather(w, -1, partial_grad=True) if model_split(f"blocks.{name}", -1) is not None
+                     else tp.copy(w))[..., cols] for name, w in kv.items() if w is not None}
+    norm = {"q_norm": tp.copy(ap.q_norm), "k_norm": tp.copy(ap.k_norm)} if ap.q_norm is not None else {}
+    ap = AttnParams(wq=ap.wq, wo=ap.wo, bq=ap.bq, **{n: kv.get(n) for n in ("wk", "wv", "bk", "bv")}, **norm)
+    q, k, v = qkv_epilogue(cfg, ap, *tp.column_parallel(h, ap.wq, ap.wk, ap.wv), positions)
+    if route.kv_of_q is not None:  # local q heads that are not whole GQA groups: one KV head per q head
+        index = torch.tensor(route.kv_of_q, device=k.device)
+        k, v = k.index_select(2, index), v.index_select(2, index)
+    o = flash_attention(q, k, v, causal=True)
+    return tp.row_parallel(o.reshape(*o.shape[:2], -1), ap.wo), k, v
 
 
 def _block(
     cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, aux: bool,
 ):
     """One layer. Returns (x_out, aux_loss (0.0 without ``aux``), k, v)."""
+    p = use_weights(p, "blocks")
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = project_qkv(cfg, _attn_params(cfg, p), h, positions)
-    o = flash_attention(q, k, v, causal=True)
-    o = o.reshape(*o.shape[:2], -1)
-    x = x + o @ p["wo"]
+    if split_model() is None:
+        q, k, v = project_qkv(cfg, _attn_params(cfg, p), h, positions)
+        o = flash_attention(q, k, v, causal=True)
+        x = x + o.reshape(*o.shape[:2], -1) @ p["wo"]
+    else:
+        o, k, v = _split_attention(cfg, p, h, positions)
+        x = x + o
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     f, aux_loss = _ffn(cfg, p, h, aux)
     return x + f, aux_loss, k, v
@@ -109,19 +159,38 @@ def embed_inputs(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Token embeddings (B, S, d); a vlm's frontend embeddings (B, Sf, d)
-    are projected and prepended."""
-    x = params["embed"][tokens]
+    are projected and prepended. In a split step with the vocab split over
+    "model", each rank looks up the tokens of its vocab range, writes zero
+    for the rest, and the rows are summed over "model"."""
+    embed = use_weight(params["embed"], "embed")
+    tp = model_split("embed", 0)
+    if tp is None:
+        x = embed[tokens]
+    else:
+        local = tokens.long() - tp.index * embed.shape[0]
+        inside = (local >= 0) & (local < embed.shape[0])
+        x = embed[local.clamp(0, embed.shape[0] - 1)]
+        x = tp.reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
     if cfg.frontend is not None and frontend is not None:
-        fe = frontend.to(x.dtype) @ params["frontend_proj"]
+        fe = frontend.to(x.dtype) @ use_weight(params["frontend_proj"], "frontend_proj")
         x = torch.cat([fe, x], dim=1)
     return x
 
 
+def logits_split(cfg: ModelConfig):
+    """(the "model" axis, this rank's first vocab id) where a split step's
+    logits are split over "model" by vocab, else None."""
+    name, dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", -1)
+    tp = model_split(name, dim)
+    return None if tp is None else (tp, tp.index * (cfg.vocab // tp.size))
+
+
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+    """Logits (B, S, V); in a split step with the vocab split over "model",
+    this rank's columns (``logits_split``)."""
+    x = rmsnorm(x, use_weight(params["final_norm"], "final_norm"), cfg.norm_eps)
+    w = use_weight(params["embed"], "embed").T if cfg.tie_embeddings else use_weight(params["lm_head"], "lm_head")
+    return x @ w if logits_split(cfg) is None else split_model().column_parallel(x, w)[0]
 
 
 def forward(

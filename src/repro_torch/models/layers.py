@@ -3,11 +3,24 @@
 Plain functions on tensors, following the JAX arithmetic recipes: rmsnorm in
 fp32, rope in fp32, silu in fp32, decode attention's value contraction with
 the softmax weights rounded to the cache dtype first, and the MoE layer's
-capacity-bounded dispatch (same routing order, same drops). ``shard_hint``
-and ``use_weight`` are gone: they do nothing without a mesh. The one trace
-of distribution is ``data_parallel_rows``: the sharded train step sets the
-data-parallel ranks for the length of the step, and ``moe_ffn`` then routes
-over the global microbatch (``repro_torch/distributed/groups.py``).
+capacity-bounded dispatch (same routing order, same drops).
+
+Two traces of distribution, each set by the sharded train step for the
+length of a step (module globals set by context managers: remat recomputes
+a layer inside the backward, which on the card runs on autograd's own
+thread):
+
+- ``data_parallel_rows``: ``moe_ffn`` routes over the global microbatch
+  (``repro_torch/distributed/groups.py``).
+- ``split_compute``: JAX's compute layout. ``use_weight`` gathers a
+  weight's FSDP shards over "data" where it is used, leaving its "model"
+  shard; ``model_split`` says whether a weight's dim is split over
+  "model", and the ops then take Megatron's pair (``ModelParallel.copy`` in,
+  ``reduce`` out): swiglu and gelu_mlp column-parallel in and row-parallel
+  out, the MoE's experts over "model" (EP), each rank combining its own.
+
+Outside them (no mesh, serving, the engine) ``use_weight`` returns the
+weight and every op is the unsharded one.
 """
 from __future__ import annotations
 
@@ -20,8 +33,77 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig, MoEConfig
+from repro_torch.distributed.groups import DataParallelWeights, ModelParallel
+from repro_torch.distributed.sharding import DATA_AXES, MODEL_AXIS, compute_spec, split_dim
 
 NEG_INF = -1e30  # finite mask value: -inf - -inf would be NaN
+
+
+# ---------------------------------------------------------------------------
+# split compute (JAX's use_weight / shard_hint layout)
+# ---------------------------------------------------------------------------
+
+
+class Split:
+    """The compute layout of one split train step. ``specs``: each leaf's
+    storage spec by dotted name, for one layer of a stacked leaf (the layers
+    entry dropped); ``weights``: the FSDP gather over "data"; ``model``: the
+    "model" axis (None with one rank: nothing is split over it)."""
+
+    def __init__(self, specs, weights: DataParallelWeights, model: Optional[ModelParallel]):
+        self.weights, self.model = weights, model
+        self.rank = {n: len(s) for n, s in specs.items()}
+        self.data_dim = {n: _data_dim(s) for n, s in specs.items()}
+        self.model_dim = {n: split_dim(compute_spec(s), MODEL_AXIS) for n, s in specs.items()}
+
+
+def _data_dim(spec) -> Optional[int]:
+    dims = {d for a in DATA_AXES for d in [split_dim(spec, a)] if d is not None}
+    if len(dims) > 1:
+        raise ValueError(f"spec {spec} splits two dims over the data axes")
+    return dims.pop() if dims else None
+
+
+_SPLIT: Optional[Split] = None
+
+
+@contextlib.contextmanager
+def split_compute(split: Optional[Split]):
+    """Within the block, the dense, moe and vlm layers compute in ``split``'s
+    layout (None: unsharded)."""
+    global _SPLIT
+    before, _SPLIT = _SPLIT, split
+    try:
+        yield
+    finally:
+        _SPLIT = before
+
+
+def use_weight(w: torch.Tensor, name: str) -> torch.Tensor:
+    """JAX's ``use_weight``: the leaf ``name``'s (one layer's) shard ``w``
+    gathered over "data" where it is used, split over "model" only; ``w``
+    itself outside a split step."""
+    return w if _SPLIT is None else _SPLIT.weights.gather(w, _SPLIT.data_dim[name])
+
+
+def use_weights(p, stack: str):
+    """``use_weight`` of each of one layer's leaves of ``<stack>.*``."""
+    return p if _SPLIT is None else {k: use_weight(w, f"{stack}.{k}") for k, w in p.items()}
+
+
+def model_split(name: str, dim: int) -> Optional[ModelParallel]:
+    """The "model" axis, where the leaf ``name``'s compute layout splits its
+    (per-layer) dim ``dim`` (negative: from the end) over it; else None."""
+    if _SPLIT is None or _SPLIT.model is None:
+        return None
+    got = _SPLIT.model_dim[name]
+    return _SPLIT.model if got is not None and got == dim % _SPLIT.rank[name] else None
+
+
+def split_model() -> Optional[ModelParallel]:
+    """The "model" axis of the split step (None outside one, or with one
+    rank)."""
+    return None if _SPLIT is None else _SPLIT.model
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -48,17 +130,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
-    h = F.silu((x @ w_gate).float()).to(x.dtype) * (x @ w_up)
-    return h @ w_down
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+           tp: Optional[ModelParallel] = None) -> torch.Tensor:
+    """With ``tp`` the weights are this rank's columns of ``w_gate`` and
+    ``w_up`` and rows of ``w_down``: column-parallel in, row-parallel out."""
+    g, u = (x @ w_gate, x @ w_up) if tp is None else tp.column_parallel(x, w_gate, w_up)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ w_down if tp is None else tp.row_parallel(h, w_down)
 
 
-def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+             tp: Optional[ModelParallel] = None) -> torch.Tensor:
     """GELU MLP without biases (the JAX callers pass none). ``jax.nn.gelu``
     defaults to the tanh approximation, so this takes it too (the erf form
-    differs by ~1e-3)."""
-    h = F.gelu((x @ w_in).float(), approximate="tanh").to(x.dtype)
-    return h @ w_out
+    differs by ~1e-3). ``tp``: as ``swiglu``'s."""
+    h = x @ w_in if tp is None else tp.column_parallel(x, w_in)[0]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ w_out if tp is None else tp.row_parallel(h, w_out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +184,9 @@ def qkv_epilogue(
     hd = cfg.resolved_head_dim
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = q.reshape(B, S, -1, hd)  # cfg.n_heads, or a split step's local heads
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if p.q_norm is not None:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -191,7 +279,8 @@ def moe_dispatch(xt: torch.Tensor, idx, pos, keep, num_experts: int, cap: int) -
 
 
 def moe_experts(dispatch: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    """Every expert's SwiGLU over its whole buffer (silu in fp32)."""
+    """Each expert's SwiGLU over its whole buffer (silu in fp32): every
+    expert's, or in a split step this rank's."""
     h = torch.bmm(dispatch, w_gate)
     u = torch.bmm(dispatch, w_up)
     h = F.silu(h.float()).to(dispatch.dtype) * u
@@ -217,6 +306,8 @@ def moe_ffn(
     *,
     aux: bool = True,
     experts: Optional[torch.Tensor] = None,
+    ep: Optional[ModelParallel] = None,
+    shared_tp: Optional[ModelParallel] = None,
 ):
     """Top-k capacity-bounded MoE. Returns (out, aux_loss).
 
@@ -236,7 +327,15 @@ def moe_ffn(
     over the ranks, T counts the global rows, slots are claimed in global
     row order and the load-balance aux is the global one (the router z-loss
     is a mean over rows, and stays this rank's: the step averages the ranks'
-    losses). Each rank dispatches, runs and combines only its own rows."""
+    losses). Each rank dispatches, runs and combines only its own rows.
+
+    With ``ep`` (the experts split over "model", JAX's
+    ``shard_hint(dispatch, "model", None, None)``) the expert weights are
+    this rank's E / m experts: the routing, capacity, slots and drops are
+    the whole layer's, computed alike on every rank; each rank dispatches
+    the (token, choice) pairs of its own experts, runs them, and combines
+    their outputs with the gates, and the partial outputs are summed over
+    "model". ``shared_tp``: the shared expert's ``swiglu`` ``tp``."""
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -260,10 +359,20 @@ def moe_ffn(
     if rows is not None:
         own = slice(rows.index * T, (rows.index + 1) * T)
         pos, keep = pos[own], keep[own]
-    eo = moe_experts(moe_dispatch(xt, idx, pos, keep, E, cap), w_gate, w_up, w_down)
-    out = moe_combine(eo, idx, pos, gate_vals * keep, cap)
+    if ep is None:
+        eo = moe_experts(moe_dispatch(xt, idx, pos, keep, E, cap), w_gate, w_up, w_down)
+        out = moe_combine(eo, idx, pos, gate_vals * keep, cap)
+    else:
+        n_local = w_gate.shape[0]
+        first = ep.index * n_local
+        own = (idx >= first) & (idx < first + n_local)
+        local_idx = (idx - first).clamp(0, n_local - 1)
+        eo = moe_experts(moe_dispatch(ep.copy(xt), local_idx, pos, keep & own, n_local, cap), w_gate, w_up, w_down)
+        gathered = eo[local_idx, pos.clamp(0, cap - 1)]  # moe_combine's rows, summed in fp32 over "model"
+        gates = (ep.copy(gate_vals * keep) * own).to(eo.dtype)
+        out = ep.reduce(torch.einsum("tk,tkd->td", gates.float(), gathered.float())).to(eo.dtype)
     if shared is not None:
-        out = out + swiglu(xt, *shared)
+        out = out + swiglu(xt, *shared, tp=shared_tp)
     if not aux:
         return out.reshape(B, S, d), 0.0
 

@@ -4,7 +4,7 @@ in gloo processes on CPU meshes, against JAX's single-device
 sharded step cannot serve as the reference: ``tests/test_distributed.py``
 fails in JAX (ROADMAP.md, "The reference's own state"), and GSPMD does not
 change the math. Each test spawns its ranks (``torch_dist_worker.py``) with
-a timeout of RUN_TIMEOUT seconds.
+a timeout of ``torch_step_rules.RUN_TIMEOUT`` seconds.
 
 - reduced qwen3-1.7b on a (2, 4) data x model mesh, the batch of
   tests/test_distributed.py, accum 2, lr 1e-3, three steps, with and
@@ -17,16 +17,14 @@ a timeout of RUN_TIMEOUT seconds.
   ties), with (token, choice) pairs dropped by the global capacity, the
   same ones as the unsharded step's;
 - the same on a (2, 2, 2) pod x data x model mesh, with compression;
-- a 1 x 1 mesh equals the unsharded step bit for bit;
+- reduced whisper-base on (2, 2), with compression: the families whose
+  sharded step gathers the whole model (encdec, rwkv6, mamba2; not
+  ``launch/steps.py::SPLIT_FAMILIES``), each step against JAX's step;
+- a 1 x 1 mesh equals the unsharded step bit for bit (dense, moe, vlm,
+  encdec, rwkv6);
 - elastic restore: saved on (2, 4), restored on (1, 1) and on (4, 2), the
   leaves equal, the next step equal.
 """
-import json
-import os
-import socket
-import subprocess
-import sys
-import time
 from pathlib import Path
 
 import jax
@@ -41,60 +39,16 @@ from repro.optim.adamw import AdamWState as JaxAdamWState
 from repro.optim.adamw import adamw_init as jax_adamw_init
 from repro_torch import bridge
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs import OptimConfig
+from repro_torch.configs import OptimConfig, get_reduced
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import layers
-from test_torch_train_cases import LOSS_RTOL, grad_tol, jax_exact, jax_flash_attention, train_pair  # noqa: F401
-from torch_dist_worker import restore_target
+from test_torch_train_cases import grad_tol, jax_exact, jax_flash_attention, train_pair  # noqa: F401
+from torch_step_rules import LR, MU_TOL, assert_one_step, assert_states_equal, quant_steps, restored, run_ranks
 
-ROOT = Path(__file__).resolve().parent.parent
-WORKER = Path(__file__).resolve().parent / "torch_dist_worker.py"
-RUN_TIMEOUT = 300
-LR = 1e-3
-GNORM_RTOL = 1e-3  # tests/test_torch_train_step.py's tolerances, step by step
-MU_TOL, NU_TOL = 2e-2, 4e-2
 # A router call of JAX's step is matched to the port's recorded call whose
 # probabilities lie nearest; the two differ by bf16 rounding upstream
 # (far below this), two different calls by far more.
 ROUTE_MATCH = 1e-2
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(tmp: Path, name: str, world: int, **case) -> dict:
-    """Spawn ``world`` ranks of the worker on ``case``; returns rank 0's
-    metrics.json. Fails if a rank fails or the run exceeds RUN_TIMEOUT."""
-    case = dict(case, out=str(tmp / name))
-    case_path = tmp / f"{name}.json"
-    case_path.write_text(json.dumps(case))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
-               OMP_NUM_THREADS="1")
-    port = _free_port()
-    logs = [open(tmp / f"{name}.rank{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(case_path), str(r), str(world), str(port)],
-                              stdout=log, stderr=subprocess.STDOUT, env=env) for r, log in enumerate(logs)]
-    deadline = time.monotonic() + RUN_TIMEOUT
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1))
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"{name}: the ranks did not finish in {RUN_TIMEOUT} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    codes = [p.returncode for p in procs]
-    if any(codes):
-        tail = (tmp / f"{name}.rank{codes.index(next(c for c in codes if c))}.log").read_text()[-4000:]
-        pytest.fail(f"{name}: exit codes {codes}\n{tail}")
-    return json.loads((tmp / name / "metrics.json").read_text())
 
 
 def start(tmp: Path, arch: str, compress: bool, tokens: np.ndarray):
@@ -121,10 +75,33 @@ def optim_kw(compress: bool):
     return dict(lr=LR, warmup_steps=0, total_steps=10, compress_grads=compress)
 
 
-def jax_step_fn(pair, state, tokens, accum: int, compress: bool):
+def frontend_rows(cfg, B: int, S: int):
+    """A vlm's patch embeddings (B, n_frontend_tokens, d) or an encdec's
+    frame embeddings (B, S // 4, d), fp32 values of bf16 (the port is given
+    them as bf16, JAX as the same bf16), or None."""
+    n = {"vlm": cfg.n_frontend_tokens, "encdec": max(S // 4, 1)}.get(cfg.family)
+    if n is None:
+        return None
+    x = np.random.default_rng(5).normal(size=(B, n, cfg.d_model)).astype(np.float32)
+    return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def with_frontend(tmp: Path, cfg, tokens: np.ndarray) -> dict:
+    """The worker's case entry for the model's frontend rows (saved under
+    ``tmp``), if it takes any."""
+    fe = frontend_rows(cfg, *tokens.shape)
+    if fe is None:
+        return {}
+    np.save(tmp / "frontend.npy", fe)
+    return {"frontend": str(tmp / "frontend.npy")}
+
+
+def jax_step_fn(pair, state, tokens, accum: int, compress: bool, frontend=None):
     """JAX's single-device step, compiled once: state (the port's) ->
     (metrics, the new state in the port's form)."""
     jb = {"tokens": jnp.asarray(tokens)}
+    if frontend is not None:
+        jb["frontend"] = jnp.asarray(frontend, jnp.bfloat16)
     fn = jax_exact(jax_build_train_step(pair.jspec, JaxOptimConfig(**optim_kw(compress)), accum_steps=accum),
                    jax_state(state), jb)
 
@@ -147,84 +124,6 @@ def port_step(pair, state, tokens, accum: int, compress: bool):
     step = build_train_step(pair.spec, OptimConfig(**optim_kw(compress)), accum)
     new, m = step(st, {"tokens": torch.from_numpy(tokens)})
     return {k: float(v) for k, v in m.items()}, new
-
-
-def restored(path: Path, arch: str, compress: bool, step: int):
-    spec = train_pair(arch).spec
-    state, _, got = Checkpointer(str(path), async_save=False).restore(restore_target(spec, compress), step=step,
-                                                                      device="cpu")
-    assert got == step
-    return state
-
-
-def _rel(a, b) -> float:
-    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
-
-
-def quant_steps(out, k: int, names):
-    """{leaf: int8 quantization step} of step ``k`` of a sharded run."""
-    names = sorted(names)
-    assert len(out["quant_steps"]) % len(names) == 0 and len(out["quant_steps"]) > k * len(names)
-    return dict(zip(names, out["quant_steps"][k * len(names):(k + 1) * len(names)]))
-
-
-def assert_one_step(before, after, m, want_after, want_m, quant=None, mu_tol=lambda name: MU_TOL):
-    """One step from ``before`` against the reference's step from the same
-    state, by tests/test_torch_train_step.py's rules: loss within
-    LOSS_RTOL, grad norm within GNORM_RTOL, mu and nu within MU_TOL
-    (``mu_tol``: a leaf's own, by name) / NU_TOL of the leaf's max, master
-    moved by at most 2 lr, the residual within half its quantization step
-    and within one of the reference's (``quant``: {leaf: step}, where the
-    step compressed), params = bf16(master). The first AdamW step is
-    sign-like (mhat / sqrt(nhat) = g / (|g| + eps)), so there the masters
-    agree to 1e-5 where the two sides' mu agree in sign and both exceed
-    1e-6 (a data-parallel gradient is a sum of the ranks' bf16 gradients,
-    each rounded apart: one side's may lie near 0 where eps tells); a later
-    step's update is a ratio of mu and nu that each side takes from its
-    own, so there the master is held to AdamW's update of its own mu and nu
-    (within 4e-7 relative: a few fp32 ulps of another order of the same
-    operations)."""
-    np.testing.assert_allclose(m["loss"], want_m["loss"], rtol=LOSS_RTOL)
-    np.testing.assert_allclose(m["grad_norm"], want_m["grad_norm"], rtol=GNORM_RTOL)
-    assert m["lr"] == want_m["lr"] and m["step"] == want_m["step"] == before["opt"].step + 1
-    opt, ref = after["opt"], want_after["opt"]
-    assert opt.step == ref.step == before["opt"].step + 1
-    for n, p in after["params"].items():
-        assert torch.equal(p, opt.master[n].to(torch.bfloat16)), n
-        assert _rel(opt.mu[n], ref.mu[n]) <= mu_tol(n), ("mu", n, _rel(opt.mu[n], ref.mu[n]))
-        assert _rel(opt.nu[n], ref.nu[n]) <= NU_TOL, ("nu", n, _rel(opt.nu[n], ref.nu[n]))
-        moved = (opt.master[n] - ref.master[n]).abs()
-        assert float(moved.max()) <= 2 * LR * 1.001, ("master", n, float(moved.max()))
-        if before["opt"].step == 0:
-            agree = (torch.sign(opt.mu[n]) == torch.sign(ref.mu[n])) & (torch.minimum(opt.mu[n].abs(), ref.mu[n].abs()) > 1e-6)
-            if agree.any():
-                assert float(moved[agree].max()) <= 1e-5, ("master where mu agrees", n, float(moved[agree].max()))
-        else:
-            t, c = opt.step, OptimConfig()
-            upd = (opt.mu[n] / (1 - c.b1 ** t)) / (torch.sqrt(opt.nu[n] / (1 - c.b2 ** t)) + c.eps)
-            expect = before["opt"].master[n] - m["lr"] * (upd + c.weight_decay * before["opt"].master[n])
-            assert torch.allclose(opt.master[n], expect, rtol=4e-7, atol=1e-9), ("master vs its own AdamW update", n)
-    for n, q in (quant or {}).items():
-        r = after["residual"][n]
-        assert float((r - want_after["residual"][n]).abs().max()) <= 1.05 * q, n
-        assert float(r.abs().max()) <= 0.5 * q * 1.0001, n
-
-
-def assert_states_equal(a, b):
-    for (n, x), (_, y) in zip(_leaves(a), _leaves(b)):
-        if isinstance(x, torch.Tensor):
-            assert x.dtype == y.dtype and torch.equal(x, y), n
-        else:
-            assert x == y, n
-
-
-def _leaves(state):
-    out = [("opt.step", state["opt"].step)]
-    for group in ("params", "residual"):
-        out += [(f"{group}.{n}", t) for n, t in sorted(state.get(group, {}).items())]
-    for field in ("mu", "nu", "master"):
-        out += [(f"opt.{field}.{n}", t) for n, t in sorted(getattr(state["opt"], field).items())]
-    return out
 
 
 def run_steps(tmp: Path, arch: str, mesh, compress: bool, tokens: np.ndarray, steps: int = 3,
@@ -341,13 +240,36 @@ def test_olmoe_on_3x2_matches_jax_with_global_capacity(tmp_path):
         assert_one_step(states[k], states[k + 1], out["metrics"][k], want, want_m, mu_tol=jax_mu_tol)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_whole_gather_family_on_2x2_matches_jax(tmp_path):
+    """Reduced whisper-base (encdec, with its frame rows) on a (2, 2) mesh
+    through the sharded step that gathers the whole bf16 model, all-reduces
+    the fp32 gradient sum over "data" and keeps the rank's shard (the
+    encdec, rwkv6 and mamba2 families), with int8 error feedback: two
+    steps, each against JAX's step from the same state (mu by the loss
+    tests' gradient tolerance of each leaf)."""
+    arch = "whisper-base"
+    extra = with_frontend(tmp_path, get_reduced(arch), QWEN_TOKENS)
+    pair, out, states = run_steps(tmp_path, arch, [2, 2], True, QWEN_TOKENS, steps=2, **extra)
+    jstep = jax_step_fn(pair, states[0], QWEN_TOKENS, 2, True, frontend=np.load(extra["frontend"]))
+    mu_tol = lambda name: max(MU_TOL, grad_tol(pair.spec, arch, name))  # noqa: E731
+    for k in range(2):
+        want_m, want = jstep(states[k])
+        assert_one_step(states[k], states[k + 1], out["metrics"][k], want, want_m,
+                        quant_steps(out, k, states[k]["params"]), mu_tol=mu_tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b", "whisper-base", "rwkv6-3b"])
 def test_1x1_mesh_is_the_unsharded_step_bit_for_bit(tmp_path, arch):
-    start(tmp_path, arch, True, QWEN_TOKENS)
+    """One arch of each family the split step serves (dense, moe, vlm with
+    its frontend rows), and of two families whose sharded step gathers the
+    whole model (encdec with its frame rows, rwkv6): on 1 x 1 every gather
+    is a view and every op the unsharded one."""
+    pair, _ = start(tmp_path, arch, True, QWEN_TOKENS)
+    extra = with_frontend(tmp_path, pair.spec.cfg, QWEN_TOKENS)
     out = run_ranks(tmp_path, "run", 1, arch=arch, mesh=[1, 1], axes=["data", "model"], accum=2, lr=LR,
                     compress=True, steps=2, ckpt_in=str(tmp_path / "ckpt_in"), step_in=0,
                     batch=str(tmp_path / "batch.npy"), ckpt_out=str(tmp_path / "ckpt_out"), save_after=[2],
-                    unsharded=True)
+                    unsharded=True, **extra)
     assert out["metrics"] == out["unsharded"]
     assert_states_equal(restored(tmp_path / "ckpt_out", arch, True, 2),
                         restored(tmp_path / "ckpt_out_unsharded", arch, True, 2))

@@ -10,6 +10,9 @@ package's layout, on the meta device with no process group:
 - ``ModelSpec.input_specs`` / ``cache_specs`` / ``cache_pspec`` equal JAX's;
 - the FLOPs counted on meta equal those counted on a real CPU run of the
   same reduced arch and shape;
+- a train cell of the dense, moe and vlm families counts the split step:
+  at most one gathered layer, the gradient shard, FLOPs that split over
+  "model", collectives from the meta run; the four largest archs fit;
 - the CLI writes one cell's JSON.
 """
 import json
@@ -34,6 +37,7 @@ from repro_torch import configs
 from repro_torch.configs import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.models.api import ModelSpec
+from repro_torch.models.common import flat_leaves
 
 ROOT = Path(__file__).resolve().parent.parent
 MESHES = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
@@ -104,7 +108,17 @@ def test_every_cell_bytes_and_skips_equal_jax(tmp_path, mesh_kind):
                 continue
             rec = dryrun.cell_bytes(arch, shape_name, mesh)
             assert rec["bytes"] == jax_cell_bytes(arch, shape_name, mesh), (arch, shape_name)
-            whole = ModelSpec(configs.get_config(arch)).param_count()
+            cfg = configs.get_config(arch)
+            whole = ModelSpec(cfg).param_count()
+            if dryrun.is_split(cfg, configs.SHAPES[shape_name]):
+                # the split step: at most one whole layer and the leaves outside the layers
+                # gathered; the fp32 gradient sum is the shard's (the residual's bytes)
+                outside = sum(math.prod(leaf.shape) for n, leaf in flat_leaves(ModelSpec(cfg).schema())
+                              if leaf.axes[0] != "layers")
+                one_layer = (whole - outside) // cfg.n_layers
+                assert 0 < rec["port_step_bytes"]["gathered_params"] <= 2 * (one_layer + outside), (arch, shape_name)
+                assert rec["port_step_bytes"]["grad_sum"] == rec["bytes"]["residual"]
+                continue
             assert rec["port_step_bytes"]["gathered_params"] == 2 * whole
             if configs.SHAPES[shape_name].kind == "train":
                 assert rec["port_step_bytes"]["grad_sum"] == 4 * whole
@@ -116,11 +130,15 @@ def test_every_cell_bytes_and_skips_equal_jax(tmp_path, mesh_kind):
 def test_full_state_bytes_on_one_device():
     """qwen3-1.7b's state on a 1 x 1 mesh: 14 B a parameter (bf16 params,
     fp32 mu, nu, master) plus the step, and 4 more with the residual (what
-    chip_smoke.py's phase 8 holds the card's allocation to)."""
+    chip_smoke.py's phase 8 holds the card's allocation to). The split step
+    on 1 x 1 computes on views of the shards (nothing gathered) and sums the
+    whole fp32 gradient, its shard; on (1, 2) the gradient sum is half."""
     rec = dryrun.cell_bytes("qwen3-1.7b", "train_4k", {"data": 1, "model": 1})
     n = ModelSpec(configs.get_config("qwen3-1.7b")).param_count()
     assert rec["bytes"]["state"] == 14 * n + 4 and rec["bytes"]["residual"] == 4 * n
-    assert rec["collective_bytes"] == {"param_gather": 0, "grad_all_reduce": 0}
+    assert rec["port_step_bytes"] == {"gathered_params": 0, "grad_sum": 4 * n}
+    half = dryrun.cell_bytes("qwen3-1.7b", "train_4k", {"data": 1, "model": 2})
+    assert half["port_step_bytes"]["grad_sum"] == half["bytes"]["residual"] < 4 * n * 0.51
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
@@ -148,6 +166,47 @@ def test_flops_on_meta_equal_a_cpu_run(arch):
         meta = dryrun.cell_flops(cfg, shape, mesh, device="meta")
         cpu = dryrun.cell_flops(cfg, shape, mesh, device="cpu")
         assert meta == cpu and meta["flops"] > 0, (shape.kind, meta, cpu)
+
+
+# A split cell's FLOPs x the model-axis size against the unsharded step's
+# (reduced archs whose heads, KV heads, ffn, experts and vocab divide by
+# 2). The split does the same matmuls, but the remat recompute runs each
+# row-parallel matmul (wo, w_down) that the unsharded recompute skips: an
+# autograd Function saves its inputs when its forward has run, where a
+# plain matmul saves them before it runs, and the recompute stops at the
+# last saved tensor. Measured: qwen3-1.7b 1.0495, olmoe-1b-7b 1.0086 (its
+# experts' matmuls are bmm, as in the unsharded step), llava-next-34b 1.0512.
+SPLIT_FLOPS_RTOL = 0.08
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b"])
+def test_split_train_cells_count_the_split(arch):
+    """Dense, moe and vlm train cells count the split compute: per-device
+    FLOPs times the "model" size within SPLIT_FLOPS_RTOL of the unsharded
+    step's; the collectives over "data" and "model" counted on the meta run
+    (none over "data" on (1, 2)); and at full width on (16, 16) the weights
+    ``use_weight`` held gathered at once stay within the cell's
+    ``gathered_params``, and the cell fits."""
+    cfg = configs.get_reduced(arch)
+    shape = ShapeConfig("train_4k", 64, 8, "train")
+    whole = dryrun.cell_flops(cfg, shape, {"data": 1, "model": 1})
+    split = dryrun.cell_flops(cfg, shape, {"data": 1, "model": 2})
+    ratio = split["flops"] * 2 / whole["flops"]
+    assert abs(ratio - 1) <= SPLIT_FLOPS_RTOL, ratio
+    assert split["collective_bytes"]["model"] > 0
+    assert split["collective_bytes"]["fsdp_gather"] == split["collective_bytes"]["grad_reduce"] == 0
+    rec = dryrun.count_cell(arch, "train_4k", "single")
+    assert 0 < rec["use_weight_peak_bytes"] <= rec["port_step_bytes"]["gathered_params"]
+    assert all(v > 0 for v in rec["collective_bytes"].values()) and rec["fits"]
+
+
+def test_the_four_largest_archs_fit_a_card_when_split():
+    """train_4k on (16, 16): the split step's state, residual, gradient
+    shard and one gathered layer fit one NVIDIA H100 80GB HBM3 (activations
+    not counted); the whole-model gather did not (198-742 GB)."""
+    for arch in ("qwen2.5-32b", "llava-next-34b", "llama4-scout-17b-a16e", "mistral-large-123b"):
+        rec = dryrun.cell_bytes(arch, "train_4k", {"data": 16, "model": 16})
+        assert rec["total_bytes"] <= 12e9, (arch, rec["total_bytes"])
 
 
 def test_cli_writes_a_cell(tmp_path):

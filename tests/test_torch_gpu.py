@@ -653,12 +653,14 @@ def test_train_launcher_crash_and_resume_on_the_card(cuda, tmp_path):
     launcher_drill(tmp_path, "cuda", extra=["--compress"])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "whisper-base", "rwkv6-3b"])
 def test_sharded_step_on_one_rank_nccl(cuda, arch):
     """The sharded train step on a 1 x 1 mesh over a one-rank NCCL group
     (its gathers and reductions are copies; olmoe's MoE gathers its routing
     over the group) equals the unsharded step on the card bit for bit: two
-    steps with int8 error feedback, metrics and every leaf of the state."""
+    steps with int8 error feedback, metrics and every leaf of the state.
+    qwen3 and olmoe take the split step, whisper-base (with its frame rows)
+    and rwkv6-3b the step that gathers the whole model."""
     import socket
 
     import torch.distributed as dist
@@ -694,3 +696,78 @@ def test_sharded_step_on_one_rank_nccl(cuda, arch):
                 assert torch.equal(local(getattr(sharded["opt"], field)[n]), t), (field, n)
     finally:
         dist.destroy_process_group()
+
+
+def _state_to(state, device):
+    """A copy of a train state on ``device`` (params requiring grad)."""
+    moved = lambda leaves: {n: t.detach().to(device).clone() for n, t in leaves.items()}  # noqa: E731
+    out = {"params": {n: t.requires_grad_(True) for n, t in moved(state["params"]).items()},
+           "opt": state["opt"]._replace(mu=moved(state["opt"].mu), nu=moved(state["opt"].nu),
+                                        master=moved(state["opt"].master))}
+    if "residual" in state:
+        out["residual"] = moved(state["residual"])
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_split_step_two_ranks_on_the_card(cuda, tmp_path, arch):
+    """The split step (TP over "model"; olmoe's experts split over it, EP)
+    on a (1, 2) mesh: two ranks on the one card over gloo
+    (tests/torch_dist_worker.py with device "cuda"), the flash kernel in
+    each. Two steps from the same state, step 1 with int8 error feedback;
+    each held to the unsharded step on the card from the same state by the
+    one-step rules (``torch_step_rules.assert_one_step``). For olmoe the
+    unsharded step's router takes the split run's recorded expert ids (a
+    bf16 tie may break the other way under TP's other rounding) and its
+    gates are its own probabilities at them; its drops then equal the
+    run's."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import OptimConfig
+    from repro_torch.launch.steps import build_train_step, make_train_state
+    from torch_step_rules import LR, assert_one_step, quant_steps, restored, run_ranks
+
+    spec = ModelSpec(get_reduced(arch))
+    moe = spec.cfg.family == "moe"
+    Checkpointer(str(tmp_path / "ckpt_in"), async_save=False).save(
+        0, make_train_state(spec, torch.Generator().manual_seed(0), compress=True, device="cpu"))
+    tokens = np.random.default_rng(1).integers(0, spec.cfg.vocab, (8, 64)).astype(np.int32)
+    np.save(tmp_path / "batch.npy", tokens)
+    steps = 2
+    out = run_ranks(tmp_path, "run", 2, arch=arch, mesh=[1, 2], axes=["data", "model"], device="cuda", accum=2, lr=LR,
+                    compress=False, compress_from=1, steps=steps, ckpt_in=str(tmp_path / "ckpt_in"), step_in=0,
+                    batch=str(tmp_path / "batch.npy"), ckpt_out=str(tmp_path / "ckpt_out"),
+                    save_after=list(range(steps + 1)), routing=moe)
+    per_step = spec.cfg.n_layers * 2 * 2  # layers x (forward + remat recompute) x microbatches
+    assert out["launches"]["flash_attention"] == steps * per_step
+    assert out["routes"] == {"tensor_core": steps * per_step, "cuda_core": 0}
+    states = [restored(tmp_path / "ckpt_out", arch, True, k) for k in range(steps + 1)]
+    recorded = np.load(tmp_path / "run" / "routing.npz")["ids"] if moe else None
+    calls = len(recorded) // steps if moe else 0
+    batch = {"tokens": torch.from_numpy(tokens).to(cuda)}
+    for k in range(steps):
+        optim = OptimConfig(lr=LR, warmup_steps=0, total_steps=10, compress_grads=k >= 1)
+        forced, drops = iter(recorded[k * calls:(k + 1) * calls]) if moe else None, []
+        inner_route, inner_slots = layers.moe_route, layers.moe_slots
+
+        def route(m, xt, w_router):
+            logits, probs, _, _ = inner_route(m, xt, w_router)
+            idx = torch.as_tensor(next(forced), device=xt.device)
+            gates = probs.gather(-1, idx)
+            return logits, probs, gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), idx
+
+        def slots(idx, num_experts, cap):
+            pos, keep = inner_slots(idx, num_experts, cap)
+            drops.append(int((~keep).sum()))
+            return pos, keep
+
+        with pytest.MonkeyPatch.context() as mp:
+            if moe:
+                mp.setattr(layers, "moe_route", route)
+                mp.setattr(layers, "moe_slots", slots)
+            new, m = build_train_step(spec, optim, 2)(_state_to(states[k], cuda), batch)
+        if moe:
+            assert drops == out["drops"][k * calls:(k + 1) * calls] and sum(drops) > 0
+            assert next(forced, None) is None
+        quant = quant_steps(out, k - 1, states[k]["params"]) if k >= 1 else None
+        assert_one_step(states[k], states[k + 1], out["metrics"][k], _state_to(new, "cpu"),
+                        {n: float(v) for n, v in m.items()}, quant)

@@ -1,0 +1,122 @@
+"""The split compute's parts (``distributed/groups.py``, ``distributed/
+sharding.py::compute_spec`` / ``head_route``) and the split model against
+the unsharded model in fp32, on gloo CPU ranks (``torch_tp_worker.py``,
+spawned by ``torch_step_rules.run_ranks``). No JAX.
+
+- each autograd op of groups.py on 2 and 3 ranks, fp64: ``copy``,
+  ``reduce``, ``gather`` over "model" (partial and replicated gradients,
+  dims 0 and 1), ``DataParallelWeights.gather`` (split over data, and not),
+  ``DataParallelRows``, a TP block ``reduce(copy(x) @ W_r)`` under
+  ``torch.autograd.gradcheck``, and an MLP through ``column_parallel`` and
+  ``row_parallel`` (fp32 parts of an fp64 input stay fp64): forward and
+  gradients equal the
+  single-process function (to fp64 rounding, OPS_TOL); the vocab-parallel
+  fp32 cross entropy within CE_TOL of ``F.cross_entropy`` on the whole
+  logits (relative to max(1, |loss|)), every other row's max on another
+  rank's range, and its gradient within CE_GRAD_TOL;
+- the split step's loss and gradients in fp32 (every arch the split serves,
+  each route: local heads, KV heads gathered from a neighbour, a GQA map per
+  q head, replicated attention, EP, experts replicated where they do not
+  divide, tied and untied vocab-parallel logits, a vlm) equal the unsharded
+  model's within FP32_TOL of each leaf's max: the split changes the layout,
+  not the function;
+- ``head_route``'s heads against the GQA map q head h -> KV head h // group,
+  for every rank of a range of head counts and axis sizes;
+- ``compute_spec`` drops the data axes.
+"""
+import pytest
+
+from repro_torch import configs
+from repro_torch.distributed.sharding import P, compute_spec, head_route, param_specs, split_dim
+from repro_torch.launch.dryrun import split_gathered_bytes
+from repro_torch.models import layers
+from repro_torch.models.api import ModelSpec
+from torch_step_rules import run_ranks
+
+import torch_tp_worker
+
+WORKER = torch_tp_worker.__file__
+OPS_TOL = 1e-12  # fp64 sums of a few terms in another order
+CE_TOL = 1e-6  # measured: 9.5e-8 (2 ranks), 9.5e-8 (3 ranks) of max(1, |loss|) ~ 20
+CE_GRAD_TOL = 1e-7  # measured: 7.5e-9
+FP32_TOL = 1e-5  # measured: at most 1.63e-6 (qwen2.5-32b's bq on 2 x 2)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_group_ops_on_gloo_ranks(tmp_path, world):
+    gaps = run_ranks(tmp_path, "ops", world, worker=WORKER, kind="ops")
+    for name, gap in gaps.items():
+        tol = {"cross entropy": CE_TOL, "cross entropy bf16 logits": CE_TOL, "cross entropy grad": CE_GRAD_TOL,
+               "max on another rank's range": 0.0, "tp block gradcheck": 0.0}.get(name, OPS_TOL)
+        assert gap <= tol, (name, gap, tol)
+
+
+SPLIT_CASES = [
+    ("qwen3-1.7b", (1, 2)), ("qwen3-1.7b", (2, 4)), ("qwen3-1.7b", (1, 4)),  # local; KV gathered (cut heads)
+    ("mistral-large-123b", (1, 3)),  # 2 q heads a rank of a group of 3: a KV head per q head
+    ("smollm-135m", (2, 2)),  # replicated attention; tied vocab-parallel logits
+    ("qwen2.5-32b", (2, 2)),  # QKV bias
+    ("olmoe-1b-7b", (2, 2)), ("olmoe-1b-7b", (1, 3)),  # EP; and everything replicated
+    ("llama4-scout-17b-a16e", (2, 2)),  # EP and a shared expert
+    ("llava-next-34b", (1, 2)),  # vlm
+]
+
+
+@pytest.mark.parametrize("arch,mesh", SPLIT_CASES)
+def test_split_loss_and_gradients_equal_the_unsharded_in_fp32(tmp_path, arch, mesh):
+    out = run_ranks(tmp_path, "model", mesh[0] * mesh[1], worker=WORKER, kind="model", arch=arch, mesh=list(mesh),
+                    axes=["data", "model"], batch=12, seq=16)
+    peak = out.pop("gathered_peak_bytes")
+    assert out.pop("loss") <= FP32_TOL
+    for name, gap in out.items():
+        assert gap <= FP32_TOL, (name, gap)
+    # fp32 params: twice the bytes the dry run counts for bf16; nothing is
+    # gathered without a "data" axis of more than one rank
+    bound = 2 * split_gathered_bytes(configs.get_reduced(arch), dict(zip(("data", "model"), mesh)))
+    assert peak <= bound and (peak > 0) == (mesh[0] > 1), (peak, bound)
+
+
+def _route_heads(H: int, KV: int, size: int, index: int, q_split: bool, kv_split: bool):
+    r = head_route(H, KV, size, index, q_split, kv_split)
+    q = list(range(*r.q))
+    local_group = max(len(q) // (r.kv[1] - r.kv[0]), 1)
+    kv_of = r.kv_of_q if r.kv_of_q is not None else tuple(i // local_group for i in range(len(q)))
+    return r, q, [r.kv[0] + j for j in kv_of]
+
+
+@pytest.mark.parametrize("H,KV", [(4, 2), (3, 1), (16, 8), (6, 2), (40, 8), (16, 16), (9, 3), (24, 6), (96, 8)])
+@pytest.mark.parametrize("size", [1, 2, 3, 4, 16])
+def test_head_route_maps_each_q_head_to_its_kv_head(H, KV, size):
+    hd = 16
+    q_split, kv_split = (H * hd) % size == 0, (KV * hd) % size == 0
+    covered = []
+    for index in range(size):
+        r, q, kv = _route_heads(H, KV, size, index, q_split, kv_split)
+        assert kv == [h // (H // KV) for h in q], (r, q, kv)
+        if r.route == "replicated":
+            assert q == list(range(H)) and (not q_split or H % size)
+        else:
+            covered += q
+            if r.route == "local":
+                assert (r.kv[1] - r.kv[0]) * size == KV and kv_split
+    if covered:
+        assert covered == list(range(H))
+
+
+def test_compute_spec_drops_the_data_axes():
+    assert compute_spec(P(None, "data", "model")) == P(None, None, "model")
+    assert compute_spec(P("model", ("pod", "data"))) == P("model", None)
+    assert compute_spec(P(None, "model", None)) == P(None, "model", None)
+    specs = param_specs(ModelSpec(configs.get_config("qwen3-1.7b")).schema(), {"data": 16, "model": 16})
+    assert compute_spec(specs["blocks.wq"]) == P(None, None, "model")
+    assert split_dim(compute_spec(specs["embed"]), "model") == 0
+    assert split_dim(compute_spec(specs["lm_head"]), "model") == 1
+
+
+def test_outside_a_split_step_every_op_is_the_unsharded_one():
+    w = layers.rmsnorm  # any object: use_weight returns what it is given
+    assert layers.use_weight(w, "embed") is w
+    assert layers.model_split("blocks.wq", -1) is None and layers.split_model() is None
+    p = {"wq": object()}
+    assert layers.use_weights(p, "blocks") is p
+

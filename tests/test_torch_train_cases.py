@@ -38,7 +38,7 @@ ARCHS = ("qwen3-1.7b", "smollm-135m", "qwen2.5-32b", "mistral-large-123b", "olmo
 # another order. Measured (seed 3, batch 2 x 32): <= 5e-6 for nine archs;
 # llama4-scout 1.09e-5, where 6 of 64 logit rows differ by one bf16 ulp
 # (CE moves ~1e-3 on 4 tokens). A wrong loss is off by far more.
-LOSS_RTOL = 2e-5
+from torch_step_rules import LOSS_RTOL  # noqa: E402  (2e-5)
 # Each gradient leaf within this fraction of its largest |value| (bf16
 # gradients, summed in other orders by the two autodiffs; JAX under
 # jax_exact rounds its bf16 reductions as it goes). Measured (seed 3): at
