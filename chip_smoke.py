@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; so does a missing card):
      at qwen3-1.7b's shapes (GQA group of 2) and once at olmoe-1b-7b's
      (16 KV heads of 16 query heads: a group of 1); flash attention also at
      phase 6's shapes (whisper's encoder and cross-attention, non-causal;
-     zamba2's shared block at head dim 112).
+     zamba2's shared block at head dim 112), at the train shapes of phases
+     7 and 9, and at a phase 10 rank's prefill, (4, 381, 8, 128) / KV 4.
   4. serving — full-width qwen3-1.7b (random weights from a seed) through
      the port's TieredEngine: every kernel launched as often as the
      deterministic policy requires, every flash call on the tensor-core
@@ -110,6 +111,27 @@ Phases (any failure exits non-zero; so does a missing card):
      through the host, so these time host staging, not TP over NVLink.
      Rank 0's step 0 runs under the profiler: its kernels' busy ms beside
      the step's.
+ 10. sharded serving — full-width qwen3-1.7b (random weights from the seed)
+     served with phase 6's prompts (4 of 381 tokens, 32 new) through the
+     sharded prefill and decode steps (``launch/steps.py``
+     ``build_prefill_step(mesh=)`` / ``build_serve_step(mesh=)``, params by
+     ``sharding.shard_params``, the decode cache by ``decode_cache(mesh=)``
+     at max_len SERVE_MAX_LEN: the sequence split over "model", every KV
+     head whole on each rank, decode attention combined over the chunks).
+     (a) The reference: the unsharded steps on the card. (c) A 1 x 1 mesh
+     over a one-rank NCCL group: the reference's tokens and every step's
+     logits bit for bit, the prefill's 28 flash launches on the tensor-core
+     route. (b) A (data 1, model 2) mesh: two processes on the one card over
+     gloo with CUDA tensors (as phase 9). Checks: each served token within
+     NEAR_TIE of the reference's max logit on the same prefix (the
+     unsharded steps teacher-forced on the run's tokens; the largest gap
+     printed); each rank's cache allocation equal to the dry run's
+     (``dryrun.cache_bytes`` under ``cache_pspec``) within DRYRUN_MEM_RTOL,
+     its local shape half the sequence (a replicated cache would pass
+     silently otherwise); 28 flash launches a rank in the prefill, all
+     tensor-core, at (4, 381, 8, 128) / KV 4; both ranks' tokens equal.
+     Prints each rank's peak, prefill ms, decode-step ms and tok/s with no
+     limit: gloo's host staging, not NVLink.
 
 The line before the last is the card as nvidia-smi names it, the one
 before that a JSON object with one entry per kernel, and the last line
@@ -212,11 +234,22 @@ SPLIT_MU_FLOOR = 1e-7
 SPLIT_ULPS = 2
 SPLIT_MASTER_ABS = 1e-2 * TRAIN_LR
 SPLIT_PEAK_LIMIT = 52.80e9  # phase 8's peak on one rank (measured on one H100)
+# phase 10: sharded prefill and decode of qwen3-1.7b with phase 6's prompts
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_MESH = (1, 2)
+# 381 + 32 = 413 positions, rounded up to a multiple of the "model" size:
+# filter_spec_for_mesh replicates a sequence the axis does not divide
+SERVE_MAX_LEN = 416
+SERVE_PATH = f"serve sharded 1x2 {SERVE_ARCH}"
+SERVE_1X1_PATH = f"serve sharded 1x1 {SERVE_ARCH}"
+SERVE_FLASH = 28  # prefill launches a rank: one a layer
 # flash attention at the train shape (forward and backward), at a split
 # rank's heads, and its backward at phase 6's shapes too
 FLASH_TRAIN_SHAPE = ("qwen3-1.7b train", 1, 4096, 4096, 16, 8, 128, True)
 FLASH_SPLIT_SHAPE = ("qwen3-1.7b train split 1x2, a rank's heads", 1, 4096, 4096, 8, 4, 128, True)
 FLASH_BWD_SHAPES = (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE) + FLASH_FAMILY_SHAPES
+# and the forward at a rank's heads in phase 10's prefill (serving has no backward)
+FLASH_SERVE_SHAPE = ("qwen3-1.7b serve split 1x2, a rank's heads", 4, 381, 381, 8, 4, 128, True)
 # the backward's dq, dk, dv: besides TOL's allclose, each tensor within this
 # fraction of its max |value| (the CPU tests' bf16 bound)
 TOL_BWD_REL = 1e-2
@@ -667,9 +700,9 @@ def check_kernels(full):
 
 
 def check_flash_family_shapes():
-    """Phase 3, flash attention at phase 6's shapes, the train shape and a
-    split rank's train shape (bf16, tensor-core route): rows for the flash
-    entry's ``extra``."""
+    """Phase 3, flash attention at phase 6's shapes, the train shape, a
+    split rank's train shape and a sharded serving rank's prefill shape
+    (bf16, tensor-core route): rows for the flash entry's ``extra``."""
     from repro_torch.kernels import reset_launch_counts, route_counts
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -678,7 +711,8 @@ def check_flash_family_shapes():
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE):
+    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE,
+                                                                    FLASH_SERVE_SHAPE):
         fq = torch.randn((B, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
         fk, fv = (torch.randn((B, S_kv, KV, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         reset_launch_counts()
@@ -1579,6 +1613,219 @@ def split_training(card, step0):
             ranks)
 
 
+def serve_prompt(cfg, dev):
+    """Phase 6's prompts: (FAMILY_BATCH, FAMILY_PROMPT) int32 from the seed."""
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(1, cfg.vocab - 1, size=(FAMILY_BATCH, FAMILY_PROMPT)).astype(np.int32)).to(dev)
+
+
+def serve_run(spec, params, prompt, mesh=None):
+    """Prefill, then FAMILY_NEW - 1 greedy decode steps through the step
+    builders (sharded on ``mesh``, or unsharded), the cache at
+    SERVE_MAX_LEN. Returns (tokens (B, FAMILY_NEW), each step's logits as
+    the steps' greedy is given them, prefill ms, decode ms a step)."""
+    from repro_torch.launch import steps
+
+    logits, inner = [], steps.greedy
+
+    def recording(lg, vocab=None, rows=None):
+        logits.append(lg.float())
+        return inner(lg, vocab, rows)
+
+    B, S = prompt.shape
+    steps.greedy = recording
+    try:
+        prefill_step, serve_step = steps.build_prefill_step(spec, mesh), steps.build_serve_step(spec, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = prefill_step(params, prompt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dc = steps.decode_cache(spec, cache, B, SERVE_MAX_LEN, device=prompt.device, mesh=mesh)
+        del cache
+        toks = [tok]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for i in range(FAMILY_NEW - 1):
+            tok, dc = serve_step(params, dc, tok, S + i)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        steps.greedy = inner
+    return torch.cat(toks, dim=1), logits, (t1 - t0) * 1e3, (t3 - t2) / (FAMILY_NEW - 1) * 1e3
+
+
+def serve_rank(rank: int, port: int, queue) -> None:
+    """One rank of phase 10 (b) (a spawned process on device 0): the seed's
+    params placed on the (1, 2) mesh, a warm-up prefill and decode step,
+    then the served run with the launch counts set to 0 before it. Puts its
+    numbers on ``queue``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step, decode_cache
+    from repro_torch.models import dense
+    from repro_torch.models.api import ModelSpec
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=SPLIT_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", SERVE_MESH, mesh_dim_names=("data", "model"))
+        spec = ModelSpec(get_config(SERVE_ARCH))
+        whole = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        params = sharding.shard_params(spec, whole, mesh)
+        del whole
+        torch.cuda.empty_cache()
+        prompt = serve_prompt(spec.cfg, dev)
+        B, S = prompt.shape
+        tok, cache = build_prefill_step(spec, mesh)(params, prompt)  # warm-up: first calls, gloo's buffers
+        build_serve_step(spec, mesh)(params, decode_cache(spec, cache, B, SERVE_MAX_LEN, mesh=mesh), tok, S)
+        del cache
+        shapes = {}
+
+        def recording(q, k, v, *, causal=True):
+            key = f"{tuple(q.shape)} / KV {k.shape[2]}"
+            shapes[key] = shapes.get(key, 0) + 1
+            return flash(q, k, v, causal=causal)
+
+        flash, dense.flash_attention = dense.flash_attention, recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tok, cache = build_prefill_step(spec, mesh)(params, prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = dict(launch_counts())
+        before = torch.cuda.memory_allocated()
+        dc = decode_cache(spec, cache, B, SERVE_MAX_LEN, mesh=mesh)
+        grown = torch.cuda.memory_allocated() - before
+        del cache
+        serve_step, toks = build_serve_step(spec, mesh), [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(FAMILY_NEW - 1):
+            tok, dc = serve_step(params, dc, tok, S + i)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / (FAMILY_NEW - 1) * 1e3
+        dense.flash_attention = flash
+        queue.put({"rank": rank, "tokens": torch.cat(toks, dim=1).cpu().numpy(), "prefill_ms": prefill_ms,
+                   "decode_ms": decode_ms, "grown": grown, "local_shape": tuple(sharding.local(dc["k"]).shape),
+                   "peak": torch.cuda.max_memory_allocated(), "prefill_launches": prefill_launches,
+                   "launches": launch_counts(), "routes": route_counts(), "shapes": shapes})
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_serving(card):
+    """Phase 10: full-width qwen3-1.7b through the sharded prefill and
+    decode steps: (a) the unsharded reference, (c) 1 x 1 over NCCL, (b)
+    (1, 2) as two ranks on the card over gloo. Returns ((c)'s launch
+    counts and routes, (b)'s ranks)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch.dryrun import cache_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import decode_cache
+    from repro_torch.models.api import ModelSpec
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(SERVE_ARCH)
+    spec = ModelSpec(cfg)
+    params = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompt = serve_prompt(cfg, dev)
+    B, S = prompt.shape
+    print(f"  {SERVE_ARCH}: {B} prompts of {S} tokens, {FAMILY_NEW} tokens each, cache max_len {SERVE_MAX_LEN}")
+    # (a) the reference
+    ref_tokens, ref_logits, ref_prefill, ref_decode = serve_run(spec, params, prompt)
+    print(f"  (a) unsharded steps: prefill {ref_prefill:.1f} ms, decode {ref_decode:.2f} ms a step, "
+          f"{B / ref_decode * 1e3:.1f} tok/s — on {card}")
+    # (c) 1 x 1 over a one-rank NCCL group: bit for bit
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh("cuda")
+        sharded = sharding.shard_params(spec, params, mesh)
+        reset_launch_counts()
+        tokens_1x1, logits_1x1, prefill_1x1, decode_1x1 = serve_run(spec, sharded, prompt, mesh)
+        counts_1x1, routes_1x1 = launch_counts(), route_counts()
+        del sharded
+    finally:
+        dist.destroy_process_group()
+    same = torch.equal(tokens_1x1, ref_tokens) and len(logits_1x1) == len(ref_logits) and \
+        all(torch.equal(a, b) for a, b in zip(logits_1x1, ref_logits))
+    print(f"  (c) 1 x 1 over NCCL: tokens and every step's logits bit-equal to (a): {same}; prefill "
+          f"{prefill_1x1:.1f} ms, decode {decode_1x1:.2f} ms a step; launches {counts_1x1}, routes {routes_1x1}")
+    want = {name: 0 for name in counts_1x1}
+    want["flash_attention"] = SERVE_FLASH
+    if not same:
+        raise AssertionError("the sharded steps on 1 x 1 are not the unsharded steps bit for bit")
+    if counts_1x1 != want or routes_1x1 != {"tensor_core": SERVE_FLASH, "cuda_core": 0}:
+        raise AssertionError(f"1 x 1 launches {counts_1x1}, routes {routes_1x1}; want {want}, all tensor-core")
+    del ref_logits, logits_1x1
+    # (b) two ranks on the card over gloo
+    queue = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    mp.spawn(serve_rank, args=(free_port(), queue), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = sorted((queue.get() for _ in range(2)), key=lambda r: r["rank"])
+    served = torch.from_numpy(ranks[0]["tokens"]).to(dev)
+    with torch.no_grad():  # the reference teacher-forced on the run's tokens
+        first, cache = spec.prefill(params, prompt)
+        dc, rows = decode_cache(spec, cache, B, SERVE_MAX_LEN, device=dev), [first]
+        del cache
+        for i in range(FAMILY_NEW - 1):
+            lg, dc = spec.decode_step(params, dc, served[:, i:i + 1], S + i)
+            rows.append(lg)
+    forced = torch.stack(rows, dim=1).float()
+    del dc, rows, params
+    gaps = forced.max(-1).values - forced.gather(-1, served.long()[..., None])[..., 0]
+    worst = float(gaps.max())
+    axes = dict(zip(("data", "model"), SERVE_MESH))
+    dry = cache_bytes(spec, B, SERVE_MAX_LEN, axes)
+    want_shape = (cfg.n_layers, B, SERVE_MAX_LEN // SERVE_MESH[1], cfg.n_kv_heads, cfg.resolved_head_dim)
+    want_flash = f"{(B, S, cfg.n_heads // SERVE_MESH[1], cfg.resolved_head_dim)} / KV {cfg.n_kv_heads // SERVE_MESH[1]}"
+    print(f"  (b) two ranks on {card}, gloo with CUDA tensors, mesh (data 1, model 2); {wall:.1f} s with the ranks' "
+          f"start; tokens: {int((served != ref_tokens).sum())} of {served.numel()} differ from (a)'s; the largest gap "
+          f"of a served token to the reference's max logit on its prefix {worst:.4f} (tol {NEAR_TIE}), "
+          f"{int((gaps == 0).sum())}/{gaps.numel()} at the max")
+    for r in ranks:
+        gap = abs(r["grown"] - dry) / dry
+        print(f"  rank {r['rank']}: cache {tuple(r['local_shape'])} (want {want_shape}), allocation "
+              f"{r['grown'] / 1e6:.3f} MB against the dry run's {dry / 1e6:.3f} MB: gap {gap:.2e} (tol "
+              f"{DRYRUN_MEM_RTOL}); prefill {r['prefill_ms']:.1f} ms, decode {r['decode_ms']:.2f} ms a step, "
+              f"{B / r['decode_ms'] * 1e3:.1f} tok/s (gloo's host staging, not NVLink); flash {r['shapes']}; "
+              f"peak {r['peak'] / 1e9:.2f} GB — on {card}")
+        if gap > DRYRUN_MEM_RTOL or tuple(r["local_shape"]) != want_shape:
+            raise AssertionError(f"rank {r['rank']}: the cache is not the dry run's under cache_pspec")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError("the two ranks returned different tokens")
+        if r["shapes"] != {want_flash: SERVE_FLASH} or r["launches"]["flash_attention"] != SERVE_FLASH or \
+                r["routes"] != {"tensor_core": SERVE_FLASH, "cuda_core": 0} or r["prefill_launches"] != r["launches"]:
+            raise AssertionError(f"rank {r['rank']}: flash {r['launches']}, {r['routes']}, {r['shapes']}; want "
+                                 f"{SERVE_FLASH} in the prefill, all tensor-core, at {want_flash}")
+        if any(n for name, n in r["launches"].items() if name != "flash_attention"):
+            raise AssertionError(f"rank {r['rank']}: the sharded steps launched other kernels: {r['launches']}")
+    if worst > NEAR_TIE:
+        raise AssertionError(f"a served token is {worst} below the reference's max logit")
+    return counts_1x1, routes_1x1, ranks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1628,6 +1875,9 @@ def main() -> int:
         flash_split, tc_split, split_ranks = split_training(card, step0)
     torch.cuda.empty_cache()
     del step0
+    with phase("sharded serving"):
+        counts_serve, routes_serve, serve_ranks = sharded_serving(card)
+    torch.cuda.empty_cache()
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
             "library_device_ms")
@@ -1653,7 +1903,9 @@ def main() -> int:
         entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name],
                                      **{arch: c[name] for arch, c in counts_family.items()},
                                      f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name],
-                                     SPLIT_PATH: flash_split if name == "flash_attention" else 0}
+                                     SPLIT_PATH: flash_split if name == "flash_attention" else 0,
+                                     SERVE_1X1_PATH: counts_serve[name],
+                                     SERVE_PATH: sum(r["launches"][name] for r in serve_ranks)}
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
     kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS
@@ -1661,11 +1913,15 @@ def main() -> int:
     kernels[3]["tensor_core_launches"] = routes["tensor_core"]
     kernels[3]["tensor_core_launches_by_path"] = {full.name: routes["tensor_core"], moe_full.name: routes_moe["tensor_core"],
                                                   f"train {TRAIN_ARCH}": routes_train["tensor_core"],
-                                                  SHARDED_PATH: routes_sharded["tensor_core"], SPLIT_PATH: tc_split}
+                                                  SHARDED_PATH: routes_sharded["tensor_core"], SPLIT_PATH: tc_split,
+                                                  SERVE_1X1_PATH: routes_serve["tensor_core"],
+                                                  SERVE_PATH: sum(r["routes"]["tensor_core"] for r in serve_ranks)}
     kernels[3]["launches_per_train_step"] = TRAIN_FLASH_PER_STEP
     kernels[3]["split_launches_per_rank_per_step"] = {f"rank {r['rank']}": [x["flash"] for x in r["steps"]]
                                                       for r in split_ranks}
     kernels[3]["split_shape_per_rank"] = FLASH_SPLIT_SHAPE[0] + ": (1, 4096, 8, 128) / KV 4 causal"
+    kernels[3]["serve_launches_per_rank"] = {f"rank {r['rank']}": r["launches"]["flash_attention"] for r in serve_ranks}
+    kernels[3]["serve_shape_per_rank"] = {f"rank {r['rank']}": r["shapes"] for r in serve_ranks}
     kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
                                "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
                                "bound_ms": x["bound"][0], "bound_by": x["bound"][1],

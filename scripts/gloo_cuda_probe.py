@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Probe, on one CUDA card, the collectives the split train step uses when
-its ranks share the card over gloo (NCCL refuses two ranks on one device).
+"""Probe, on one CUDA card, the collectives the split train step and the
+sharded serving steps use when their ranks share the card over gloo (NCCL
+refuses two ranks on one device).
 
     PYTHONPATH=src python3 scripts/gloo_cuda_probe.py
 
@@ -17,8 +18,11 @@ read back (``to_local``, ``sharding.gather``), and torch's own
 torch 2.11.0+cu128 it killed a rank with SIGSEGV);
 a CUDA tensor the parent shares with its ranks (CUDA IPC); and the time of
 an all-reduce of (1, 4096, 2048) in bf16 and fp32 (one TP all-reduce of
-full-width qwen3-1.7b at seq 4096). Prints one line per check; exits
-non-zero when a check the port relies on fails.
+full-width qwen3-1.7b at seq 4096). Also ``all_to_all_single`` and
+``all_to_all``, which the port does not rely on: the sharded prefill moves
+its K/V from heads to sequence by an all-gather
+(``ModelParallel.gather_heads``), which serves every head route. Prints
+one line per check; exits non-zero when a check the port relies on fails.
 """
 import socket
 import sys
@@ -33,8 +37,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 WORLD = 2
 CHECKS = ("all_reduce", "all_gather", "the port's gathers", "device mesh", "dtensor", "dtensor full_tensor (torch's)",
-          "cuda ipc", "time")
-NOT_RELIED_ON = ("dtensor full_tensor (torch's)",)
+          "cuda ipc", "all_to_all_single", "all_to_all", "time")
+NOT_RELIED_ON = ("dtensor full_tensor (torch's)", "all_to_all_single", "all_to_all")
 
 
 def _free_port() -> int:
@@ -92,6 +96,15 @@ def _check(rank: int, name: str, port: int, shared: torch.Tensor, queue) -> None
             whole = torch.arange(12, dtype=torch.bfloat16).reshape(4, 3)
             d = sharding.distribute(whole, mesh, sharding.P("model", None))
             assert torch.equal(d.full_tensor().cpu(), whole)
+        elif name == "all_to_all_single":
+            x = torch.arange(4, device=dev, dtype=torch.bfloat16) + 10 * rank
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x)  # rank r receives block r of every rank
+            assert out.cpu().tolist() == [2 * rank, 2 * rank + 1, 10 + 2 * rank, 11 + 2 * rank], out
+        elif name == "all_to_all":
+            parts = [torch.empty(2, device=dev) for _ in range(WORLD)]
+            dist.all_to_all(parts, [torch.full((2,), 10.0 * rank + r, device=dev) for r in range(WORLD)])
+            assert [float(p[0]) for p in parts] == [10.0 * r + rank for r in range(WORLD)], parts
         elif name == "cuda ipc":
             assert shared.is_cuda and float(shared.sum()) == float(shared.numel())
         elif name == "time":
@@ -124,7 +137,8 @@ def main() -> int:
             mp.spawn(_check, args=(name, _free_port(), shared, queue), nprocs=WORLD, join=True)
             print(f"ok    {name}: {queue.get()}", flush=True)
         except Exception as e:  # a check's failure is reported and the next check runs
-            print(f"FAIL  {name}: {type(e).__name__}: {str(e).splitlines()[0] if str(e) else ''}", flush=True)
+            lines = [line for line in str(e).splitlines() if line.strip()]  # a rank's error ends its traceback
+            print(f"FAIL  {name}: {type(e).__name__}: {lines[-1] if lines else ''}", flush=True)
             if name not in NOT_RELIED_ON:
                 failed.append(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}; gloo, "

@@ -29,6 +29,16 @@ counts the work of one rank among ``size``.
   neighbours, or a projection computed replicated); the vocab-parallel
   fp32 cross entropy.
 
+**Sharded serving** (the split prefill and decode steps, under no grad):
+``ModelParallel.all_max`` and ``reduce`` (decode attention's combine over a
+sequence-sharded cache), ``argmax`` (greedy over vocab-split logits, the
+lowest global id among equal maxima) and ``gather_heads`` (every KV head
+from the ranks' head ranges, each head from the first rank that holds it:
+the prefill's K/V moved from heads to sequence, and the decode token's K/V
+row). The heads move by an all-gather, which serves every head route (a
+"kv_gather" rank's range overlaps its neighbour's, a "replicated" rank holds
+every head) with the ops gloo and NCCL share.
+
 Each op is an ``autograd.Function`` written here on ``all_reduce`` and
 ``all_gather`` alone: ``torch.distributed.nn.functional.all_gather``'s
 backward scatters from a global rank and fails on a gloo subgroup, and
@@ -262,6 +272,50 @@ class ModelParallel:
         whole gradient (a projection computed replicated), and the own block
         is taken as it is."""
         return _Gather.apply(x, dim, self.group, self.size, self.index, self.group if partial_grad else None)
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over "model" (no gradient)."""
+        return _all_reduce(x, self.group, dist.ReduceOp.MAX)
+
+    def argmax(self, logits: torch.Tensor, vocab_start: int) -> torch.Tensor:
+        """The global argmax of logits split over "model" by vocab:
+        ``logits`` (..., V_local) holds columns [vocab_start, vocab_start +
+        V_local). int64 ids (...), the lowest among equal maxima (JAX's
+        ``argmax``, and each rank's ``torch.argmax``): the max is taken over
+        "model", and of the ranks that hold it the lowest id wins, as the
+        max of the negated ids (exact in fp32 below 2^24)."""
+        z = logits.float()
+        arg = torch.argmax(z, dim=-1)
+        local_max = z.gather(-1, arg[..., None])[..., 0]
+        at_max = local_max == self.all_max(local_max)
+        neg_id = torch.where(at_max, -(arg + vocab_start).float(), torch.full_like(local_max, -float(2 ** 24)))
+        return (-self.all_max(neg_id)).long()
+
+    def gather_heads(self, x: torch.Tensor, ranges, dim: int) -> torch.Tensor:
+        """Every head of a tensor whose heads lie along ``dim``: this rank's
+        ``x`` holds heads ``ranges[index]`` ([start, stop)), and
+        ``ranges`` lists each rank's, in rank order, covering the heads
+        without a gap. Each head comes from the first rank that holds it.
+        Ranks that all hold every head keep ``x``; otherwise each rank's
+        block, padded to the widest, is all-gathered."""
+        n = max(b for _, b in ranges)
+        if all(tuple(r) == (0, n) for r in ranges):
+            return x
+        dim = dim % x.dim()
+        width = max(b - a for a, b in ranges)
+        if x.shape[dim] < width:
+            pad = list(x.shape)
+            pad[dim] = width - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        parts = _all_gather(x, self.group, self.size, dim).split(width, dim=dim)
+        pieces, done = [], 0
+        for (a, b), part in zip(ranges, parts):
+            if a > done:
+                raise ValueError(f"gather_heads: heads [{done}, {a}) are on no rank: {ranges}")
+            if b > done:
+                pieces.append(part.narrow(dim, done - a, b - done))
+                done = b
+        return torch.cat(pieces, dim=dim)
 
     def cross_entropy(self, logits: torch.Tensor, targets: torch.Tensor, vocab_start: int) -> torch.Tensor:
         """Per-row fp32 cross entropy of logits split over "model" by vocab:

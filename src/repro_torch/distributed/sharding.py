@@ -242,6 +242,27 @@ def distribute(t: torch.Tensor, mesh, spec):
     return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False)  # even shards: the shape follows
 
 
+def shard_params(spec, params: Dict[str, torch.Tensor], mesh, rules=None) -> Dict[str, Any]:
+    """The params alone on ``mesh`` (a served model has no optimizer state;
+    ``launch/steps.py::shard_train_state`` places its leaves named as the
+    params through it): DTensors placed by ``param_specs(spec.schema(),
+    mesh, rules)``, each rank's shard a fresh copy on the mesh's device
+    (``params`` is left as it was). The steps read each
+    leaf's layout from its placements, so ``rules`` may be other rules than
+    the default: JAX's "tp_only" serving layout is ``dict(DEFAULT_RULES,
+    embed=None)`` (no FSDP: the weights split over "model" only)."""
+    specs = param_specs(spec.schema(), mesh, rules)
+    return {n: distribute(t, mesh, specs[n]) for n, t in params.items()}
+
+
+def cache_layout(spec, shape: Sequence[int], mesh) -> Tuple[PartitionSpec, Tuple[slice, ...]]:
+    """A cache entry of global ``shape`` under its ``cache_pspec`` entry
+    ``spec``: (the spec through ``filter_spec_for_mesh``, which replicates a
+    dim the mesh axis does not divide; this rank's slices of the whole)."""
+    spec = filter_spec_for_mesh(spec, mesh, shape)
+    return spec, shard_slices(shape, spec, mesh, mesh_coordinate(mesh))
+
+
 def gather(t: torch.Tensor) -> torch.Tensor:
     """The whole tensor of a DTensor (a collective over its mesh), as a plain
     tensor; a plain tensor as it is. With gloo on CUDA tensors (ranks

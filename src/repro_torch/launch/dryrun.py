@@ -13,16 +13,17 @@ process group and no data:
     the error-feedback residual by ``param_specs``; of the step's inputs by
     ``batch_spec``, and of a decode cell's cache by ``cache_pspec``, both
     through ``filter_spec_for_mesh``;
-  * the bytes the port's step holds beyond its state. A train cell of the
+  * the bytes the port's step holds beyond its state. A cell of the
     dense, moe and vlm families (``launch/steps.py::SPLIT_FAMILIES``; the
-    split step): ``gathered_params``, the weights gathered at once (the
-    largest layer's compute shards, gathered over "data", with the whole
-    attention projections a ``head_route`` gathers over "model", plus the
-    compute shards of the embedding, ``lm_head`` and the other leaves
-    outside the layers; a leaf the data axes do not split is computed on a
-    view of its shard and adds nothing), and ``grad_sum``, the fp32
+    split train step, and the sharded prefill and decode steps):
+    ``gathered_params``, the weights gathered at once (the largest layer's
+    compute shards, gathered over "data", with the whole attention
+    projections a ``head_route`` gathers over "model", plus the compute
+    shards of the embedding, ``lm_head`` and the other leaves outside the
+    layers; a leaf the data axes do not split is computed on a view of its
+    shard and adds nothing), and in a train cell ``grad_sum``, the fp32
     gradient sum of the rank's shards. Any other cell: the whole bf16 model
-    (the other families' sharded step, and the unsharded prefill and
+    (the other families' sharded step, and their unsharded prefill and
     decode, gather it onto each device) and, in a train cell, the whole
     fp32 gradient sum. ``fits``: state + inputs + cache + those within
     ``--device-bytes`` (default 80e9, one NVIDIA H100 80GB HBM3).
@@ -32,9 +33,17 @@ process group and no data:
     over one microbatch of the device's rows on meta (a train cell: loss,
     backward and the remat recompute; the MoE routes over the global
     microbatch as in the sharded step; a split cell with rank 0's local
-    shapes, its collectives keeping shapes), times ``accum_steps``;
+    shapes, its collectives keeping shapes), times ``accum_steps``; a split
+    prefill or decode cell: the sharded step's body on rank 0's rows, local
+    shards and cache chunk (``steps.prefill_local`` / ``decode_local``);
   * per-device collective bytes of one step (bytes one rank sends, ring
-    algorithms). A split train cell, counted on the same meta run:
+    algorithms). A split prefill or decode cell, counted on its meta run:
+    ``fsdp_gather`` (each weight's all-gather over "data") and ``model``
+    (over "model": the TP all-reduces, the vocab-parallel embedding and
+    greedy, EP's combine, the projections a head route gathers; a decode
+    cell also the new token's K/V row and q of every head gathered, and
+    decode attention's combine over the sequence-sharded cache). A split
+    train cell, counted on the same meta run:
     ``fsdp_gather`` (each weight's all-gather over "data" in the forward and
     the remat recompute), ``grad_reduce`` (each weight's gradient summed
     over the data-parallel ranks in the backward, in bf16, as an all-reduce
@@ -45,8 +54,9 @@ process group and no data:
     other train cell, from the layout: one gather of the params and one
     ring all-reduce of the fp32 gradient sum over the data-parallel ranks.
 
-The port has sharded train steps only; a prefill or decode cell counts
-the port's unsharded step on the rows one device would take.
+The encoder-decoder, RWKV6 and Mamba2 families' prefill and decode cells
+count the port's unsharded step on the rows one device would take
+(their sharded serving is ROADMAP.md §4 item 1).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k --mesh single
@@ -71,7 +81,7 @@ from repro_torch.distributed.sharding import (MODEL_AXIS, batch_spec, compute_sp
                                               local_bytes, local_shape, param_specs, split_dim)
 from repro_torch.launch.mesh import dp_size, production_mesh_shape
 from repro_torch.launch.steps import (SPLIT_FAMILIES, abstract_train_state, build_prefill_step, build_serve_step,
-                                      build_train_step)
+                                      build_train_step, decode_local, prefill_local)
 from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
 from repro_torch.models.common import flat_leaves
@@ -131,8 +141,9 @@ class CountingWeights(DataParallelWeights):
 
 
 def is_split(cfg, shape: ShapeConfig) -> bool:
-    """Whether the cell's step is the split train step."""
-    return shape.kind == "train" and cfg.family in SPLIT_FAMILIES
+    """Whether the cell's step computes split (the split train step, or the
+    sharded prefill and decode steps): the dense, moe and vlm families."""
+    return cfg.family in SPLIT_FAMILIES
 
 
 def _attention_route(cfg, specs, mesh: Mapping[str, int]):
@@ -170,6 +181,15 @@ def split_gathered_bytes(cfg, mesh: Mapping[str, int]) -> int:
     return layer + outside
 
 
+def cache_bytes(spec: ModelSpec, batch: int, max_len: int, mesh: Mapping[str, int]) -> int:
+    """One device's bytes of ``spec.init_cache(batch, max_len)`` under
+    ``cache_pspec`` through ``filter_spec_for_mesh`` (``length`` a 0-d
+    int32, as JAX's ``cache_specs``)."""
+    cspec = spec.cache_pspec()
+    return sum(local_bytes(t.shape, t.element_size(), filter_spec_for_mesh(cspec[k], mesh, t.shape), mesh)
+               for k, t in spec.cache_specs(batch, max_len).items())
+
+
 def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int]) -> Dict[str, Any]:
     """The byte columns of one cell on the mesh ``{axis: size}`` (no data)."""
     cfg, shape = get_config(arch), SHAPES[shape_name]
@@ -192,11 +212,11 @@ def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int]) -> Dict[str,
         rec["opt"] = 0
     split = is_split(cfg, shape)
     if split:
-        extra = {"gathered_params": split_gathered_bytes(cfg, mesh), "grad_sum": per(opt.master)}
+        extra = {"gathered_params": split_gathered_bytes(cfg, mesh)}
+        if shape.kind == "train":
+            extra["grad_sum"] = per(opt.master)
     if cache is not None:
-        cspec = spec.cache_pspec()
-        rec["cache"] = sum(local_bytes(t.shape, t.element_size(), filter_spec_for_mesh(cspec[k], mesh, t.shape), mesh)
-                           for k, t in cache.items())
+        rec["cache"] = cache_bytes(spec, shape.global_batch, shape.seq_len, mesh)
     rec["state"] = rec["params"] + rec["opt"]
     out = {"bytes": rec, "port_step_bytes": extra,
            "total_bytes": rec["state"] + rec["inputs"] + rec.get("cache", 0) + sum(extra.values())}
@@ -217,8 +237,8 @@ def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") 
     dev = torch.device(device)
     if is_split(cfg, shape) and math.prod(mesh.values()) > 1:
         if dev.type != "meta":
-            raise ValueError("a split train cell is counted on the meta device only")
-        return _split_flops(spec, shape, mesh)
+            raise ValueError("a split cell is counted on the meta device only")
+        return (_split_flops if shape.kind == "train" else _split_serve_flops)(spec, shape, mesh)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(0)
     params = spec.abstract_params() if gen is None else spec.init(gen, device=dev)
     for p in params.values():
@@ -256,23 +276,33 @@ def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") 
             **({"accum_steps": accum} if shape.kind == "train" else {})}
 
 
+def _meta_split(spec: ModelSpec, mesh: Mapping[str, int], grad: bool, cache=None):
+    """Rank 0 of ``mesh`` on the meta device: (its storage shards of the
+    params, requiring grad with ``grad``; the ShapeOnlyGroups over "data",
+    the data-parallel ranks and "model", which count the bytes sent; the
+    ``CountingWeights``; the step's ``layers.Split``, with the cache
+    entries' specs ``cache``)."""
+    specs = param_specs(spec.schema(), mesh)
+    stacked = {n for n, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
+    params = {n: torch.empty(local_shape(t.shape, specs[n], mesh), dtype=t.dtype, device="meta").requires_grad_(grad)
+              for n, t in spec.abstract_params().items()}
+    dp = dp_size(mesh)
+    data, dp_group, model = ShapeOnlyGroup(mesh.get("data", 1)), ShapeOnlyGroup(dp), ShapeOnlyGroup(mesh.get(MODEL_AXIS, 1))
+    weights = CountingWeights(data, data.size, 0, dp_group, dp)
+    tp = ModelParallel(model, model.size, 0) if model.size > 1 else None
+    split = layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, tp, cache)
+    return params, (data, dp_group, model), weights, split
+
+
 def _split_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int]) -> Dict[str, Any]:
     """``cell_flops`` of a split train cell: one microbatch of rank 0's rows
     through the split step's accumulation on meta, its params rank 0's
     storage shards, its collectives over ``ShapeOnlyGroup``s that count the
     bytes sent; FLOPs and bytes times the microbatch count. Also the most
     weight bytes ``use_weight`` held gathered at once."""
-    cfg = spec.cfg
-    specs = param_specs(spec.schema(), mesh)
-    stacked = {n for n, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
-    params = {n: torch.empty(local_shape(t.shape, specs[n], mesh), dtype=t.dtype, device="meta").requires_grad_(True)
-              for n, t in spec.abstract_params().items()}
+    params, (data, dp_group, model), weights, split = _meta_split(spec, mesh, grad=True)
     dp = dp_size(mesh)
-    data, dp_group, model = ShapeOnlyGroup(mesh.get("data", 1)), ShapeOnlyGroup(dp), ShapeOnlyGroup(mesh.get(MODEL_AXIS, 1))
-    weights = CountingWeights(data, data.size, 0, dp_group, dp)
-    tp = ModelParallel(model, model.size, 0) if model.size > 1 else None
-    split = layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, tp)
-    accum = accum_steps(cfg, shape, mesh)
+    accum = accum_steps(spec.cfg, shape, mesh)
     rows = shape.global_batch // accum // dp
     batch = {k: torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device="meta")
              for k, t in spec.input_specs(shape).items()}
@@ -286,6 +316,39 @@ def _split_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int]) -
             "use_weight_peak_bytes": weights.peak}
 
 
+def _split_serve_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int]) -> Dict[str, Any]:
+    """``cell_flops`` of a split prefill or decode cell: the sharded step's
+    body (``steps.prefill_local`` / ``decode_local``) on rank 0's rows,
+    storage shards and cache chunk on meta, under no grad, its collectives
+    over ``ShapeOnlyGroup``s that count the bytes sent. A decode cell's
+    cache is ``cache_pspec``'s local shape at the cell's length, and the
+    step writes and attends at its last position. Also the most weight
+    bytes ``use_weight`` held gathered at once."""
+    inputs = spec.input_specs(shape)
+    cache = cache_specs = None
+    if shape.kind == "decode":
+        cspec = spec.cache_pspec()
+        entries = {k: t for k, t in inputs["cache"].items() if t.dim()}
+        cache_specs = {k: filter_spec_for_mesh(cspec[k], mesh, t.shape) for k, t in entries.items()}
+        cache = {k: torch.empty(local_shape(t.shape, cache_specs[k], mesh), dtype=t.dtype, device="meta")
+                 for k, t in entries.items()}
+        cache["length"] = shape.seq_len - 1
+    params, (data, _, model), weights, split = _meta_split(spec, mesh, grad=False, cache=cache_specs)
+    rows = _device_rows(shape.global_batch, mesh)
+    dp_rows = ShapeOnlyRows(dp_size(mesh)) if rows * dp_size(mesh) == shape.global_batch else None
+    batch = {k: torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device="meta")
+             for k, t in inputs.items() if k in ("tokens", "frontend")}
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), layers.data_parallel_rows(dp_rows), layers.split_compute(split), counter:
+        if shape.kind == "prefill":
+            prefill_local(spec, params, batch["tokens"], batch.get("frontend"), dp_rows)
+        else:
+            decode_local(spec, params, cache, batch["tokens"], shape.seq_len - 1, dp_rows)
+    return {"flops": counter.get_total_flops(), "rows_per_device": rows,
+            "collective_bytes": {"fsdp_gather": int(data.sent), "model": int(model.sent)},
+            "use_weight_peak_bytes": weights.peak}
+
+
 def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float = DEVICE_BYTES) -> Dict[str, Any]:
     mesh = production_mesh_shape(multi_pod=(mesh_kind == "multi"))
     t0 = time.time()
@@ -294,9 +357,9 @@ def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float =
     rec["device"] = DEVICE_NAME if device_bytes == DEVICE_BYTES else "--device-bytes"
     rec["device_bytes"] = device_bytes
     rec["fits"] = rec["total_bytes"] <= device_bytes
-    rec["fits_counts"] = ("state + inputs + cache + gathered params + fp32 gradient sum (a split train cell: "
-                          "the largest layer's and the outside leaves' gathered weights, the gradient shard); "
-                          "not activations")
+    rec["fits_counts"] = ("state + inputs + cache + gathered params + fp32 gradient sum (a split cell: "
+                          "the largest layer's and the outside leaves' gathered weights; a train cell's gradient "
+                          "shard); not activations")
     rec.update(cell_flops(get_config(arch), SHAPES[shape_name], mesh))
     rec["count_s"] = round(time.time() - t0, 2)
     return rec

@@ -6,11 +6,15 @@ Mamba2/Zamba2 families are served (the tiered engine serves the GQA decoder
 families only, as in JAX). The train step is ``python -m
 repro_torch.launch.train``'s; with a mesh it is the sharded step
 (``shard_train_state`` places the state), and ``abstract_train_state`` is
-the dry run's state on the meta device (``launch/dryrun.py``).
+the dry run's state on the meta device (``launch/dryrun.py``). With a mesh
+the prefill and decode steps of the dense, moe and vlm families serve in
+JAX's layout (params by ``sharding.shard_params``, the decode cache by
+``decode_cache(mesh=)``); the dry run counts their bodies
+(``prefill_local``, ``decode_local``) on meta.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -19,7 +23,7 @@ from repro_torch.configs import OptimConfig
 from repro_torch.distributed import sharding
 from repro_torch.distributed.groups import DataParallelRows, DataParallelWeights, ModelParallel
 from repro_torch.launch.mesh import data_group, dp_group, dp_index, dp_size, model_group, model_index, model_size
-from repro_torch.models import layers
+from repro_torch.models import dense, layers
 from repro_torch.models.api import ModelSpec
 from repro_torch.models.common import flat_leaves
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, leaf_square_sums, norm_of_sums
@@ -30,6 +34,12 @@ Tensors = Dict[str, torch.Tensor]
 # the families whose sharded step splits its compute over "model" (the
 # others gather the whole model onto each rank)
 SPLIT_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _model_parallel(mesh) -> Optional[ModelParallel]:
+    """This rank's place on the mesh's "model" axis (None with one rank)."""
+    m = model_size(mesh)
+    return ModelParallel(model_group(mesh), m, model_index(mesh)) if m > 1 else None
 
 
 def make_train_state(spec: ModelSpec, generator: torch.Generator, compress: bool = False, device="cuda"):
@@ -65,8 +75,7 @@ def shard_train_state(spec: ModelSpec, state: Dict[str, Any], mesh, rules=None) 
     was, wherever it lies); the step stays a replicated int. The layout is
     this function's alone: the sharded step reads each leaf's shard from its
     placements."""
-    specs = sharding.param_specs(spec.schema(), mesh, rules)
-    place = lambda leaves: {n: sharding.distribute(t, mesh, specs[n]) for n, t in leaves.items()}  # noqa: E731
+    place = lambda leaves: sharding.shard_params(spec, leaves, mesh, rules)  # noqa: E731
     opt = state["opt"]
     out = {"params": place(state["params"]),
            "opt": AdamWState(opt.step, place(opt.mu), place(opt.nu), place(opt.master))}
@@ -160,7 +169,7 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
     if split:
         stacked = {name for name, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
         weights = DataParallelWeights(data_group(mesh), sizes.get("data", 1), coord.get("data", 0), group, dp)
-        tp = ModelParallel(model_group(mesh), model_size(mesh), model_index(mesh)) if model_size(mesh) > 1 else None
+        tp = _model_parallel(mesh)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         B = batch["tokens"].shape[0]
@@ -210,43 +219,176 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
     return train_step
 
 
-def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    """(B, V) -> (B, 1) int32: the first index of each row's maximum."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+def greedy(logits: torch.Tensor, vocab=None, rows=None) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) int32: the first index of each row's maximum.
+    ``vocab``: (the "model" axis, this rank's first id) where the logits
+    are this rank's vocab columns (the lowest global id among equal maxima,
+    ``ModelParallel.argmax``); ``rows``: the data-parallel ranks whose rows
+    are gathered after it (the global batch, in their order)."""
+    ids = torch.argmax(logits, dim=-1) if vocab is None else vocab[0].argmax(logits, vocab[1])
+    if rows is not None:
+        ids = rows.gather(ids)
+    return ids.to(torch.int32)[:, None]
 
 
-def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max_len: int, device="cuda"):
+def prefill_local(spec: ModelSpec, params: Tensors, tokens: torch.Tensor, frontend=None, rows=None):
+    """The prefill step's body on this rank's rows and params, in whatever
+    compute layout is in force (``layers.split_compute``): (the global
+    batch's next tokens, the rank's cache)."""
+    logits, cache = spec.prefill(params, tokens, frontend)
+    return greedy(logits, _vocab_split(spec), rows), cache
+
+
+def decode_local(spec: ModelSpec, params: Tensors, cache, tokens: torch.Tensor, pos: int, rows=None):
+    """The serve step's body, as ``prefill_local``'s: (next tokens, cache)."""
+    logits, cache = spec.decode_step(params, cache, tokens, pos)
+    return greedy(logits, _vocab_split(spec), rows), cache
+
+
+def _vocab_split(spec: ModelSpec):
+    return dense.logits_split(spec.cfg) if spec.cfg.family in SPLIT_FAMILIES else None
+
+
+def _require_split(spec: ModelSpec) -> None:
+    if spec.cfg.family not in SPLIT_FAMILIES:
+        raise ValueError(f"{spec.cfg.name}: sharded prefill and decode serve the {SPLIT_FAMILIES} families; the "
+                         f"{spec.cfg.family} family's is ROADMAP.md §4 item 1 (the next slice)")
+
+
+class _Serving:
+    """A sharded serving step's place on ``mesh``: this rank's rows of the
+    global batch (block ``dp_index``, as ``build_train_step`` takes them, or
+    every row where the data-parallel ranks do not divide the batch, as
+    ``filter_spec_for_mesh`` replicates it), and the compute layout of its
+    params (and cache), read from their placements."""
+
+    def __init__(self, spec: ModelSpec, mesh):
+        _require_split(spec)
+        self.mesh = mesh
+        self.dp, self.index = dp_size(mesh), dp_index(mesh)
+        self.group = dp_group(mesh)
+        self.stacked = {name for name, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
+
+    def rows(self, batch: int):
+        """(this rank's slice of the global rows, the data-parallel ranks
+        to gather the next tokens over: None where each holds every row)."""
+        if batch % self.dp:
+            return slice(0, batch), None
+        n = batch // self.dp
+        return slice(self.index * n, (self.index + 1) * n), DataParallelRows(self.group)
+
+    def layout(self, params, cache=None) -> layers.Split:
+        sizes, coord = sharding.mesh_shape(self.mesh), sharding.mesh_coordinate(self.mesh)
+        specs = {n: sharding.spec_of(p) for n, p in params.items()}
+        weights = DataParallelWeights(data_group(self.mesh), sizes.get("data", 1), coord.get("data", 0), self.group,
+                                      self.dp)
+        caches = None if cache is None else {k: sharding.spec_of(v) for k, v in cache.items()
+                                             if isinstance(v, torch.Tensor)}
+        return layers.Split({n: s[1:] if n in self.stacked else s for n, s in specs.items()}, weights,
+                            _model_parallel(self.mesh), caches)
+
+
+def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max_len: int, device="cuda", mesh=None):
     """``spec.init_cache(batch, max_len)`` holding ``prefill_cache`` in the
     leading slice of each entry, zeros after it (how JAX's
     ``tests/test_system.py::test_prefill_decode`` hands a prefill to
     decode; an encdec's cross rows beyond the frames stay zero and are
     attended, as in JAX). Entries keep the prefill's dtypes, so an fp32
-    prefill gives an fp32 cache."""
-    dc = spec.init_cache(batch, max_len, device=device)
-    for key, v in prefill_cache.items():
-        if key != "length":
-            dc[key] = dc[key].to(v.dtype)
-            dc[key][tuple(slice(0, n) for n in v.shape)] = v
-    return dc
+    prefill gives an fp32 cache.
+
+    With ``mesh`` (the dense, moe and vlm families), the cache of the global
+    ``batch`` placed as ``cache_pspec`` says, through
+    ``filter_spec_for_mesh``: k and v DTensors of this rank's rows and its
+    chunk of the ``max_len`` positions, every KV head whole; ``length`` as
+    the prefill's. ``prefill_cache`` is the sharded prefill's (this rank's
+    rows and KV heads): its heads are gathered over "model"
+    (``ModelParallel.gather_heads``) and the rank keeps its chunk of the
+    positions. ``device`` is then the mesh's."""
+    if mesh is None:
+        dc = spec.init_cache(batch, max_len, device=device)
+        for key, v in prefill_cache.items():
+            if key != "length":
+                dc[key] = dc[key].to(v.dtype)
+                dc[key][tuple(slice(0, n) for n in v.shape)] = v
+        return dc
+    from torch.distributed.tensor import DTensor
+
+    _require_split(spec)
+    tp = _model_parallel(mesh)
+    ranges, specs = prefill_cache.get("kv_heads"), spec.cache_pspec()
+    out = {"length": prefill_cache["length"]}
+    for key in ("k", "v"):
+        part = prefill_cache[key]  # (L, rows, S, this rank's KV heads, hd)
+        whole = part if ranges is None else tp.gather_heads(part, ranges, 3)
+        L, rows, S, KV, hd = whole.shape
+        cspec, idx = sharding.cache_layout(specs[key], (L, batch, max_len, KV, hd), mesh)
+        if idx[1].stop - idx[1].start != rows:
+            raise ValueError(f"the prefill cache holds {rows} rows; this rank's of {batch} under {cspec} are {idx[1]}")
+        local = torch.zeros((L, rows, idx[2].stop - idx[2].start, KV, hd), dtype=part.dtype,
+                            device=sharding.mesh_device(mesh))
+        first, stop = idx[2].start, min(idx[2].stop, S)
+        if stop > first:
+            local[:, :, :stop - first] = whole[:, :, first:stop]
+        out[key] = DTensor.from_local(local, mesh, sharding.placements(cspec, mesh), run_check=False)
+    return out
 
 
-def build_prefill_step(spec: ModelSpec) -> Callable:
+def build_prefill_step(spec: ModelSpec, mesh=None) -> Callable:
     """prefill_step(params, tokens, frontend=None) -> (next token (B, 1)
-    int32, cache)."""
+    int32, cache).
 
-    def prefill_step(params, tokens, frontend=None):
-        logits, cache = spec.prefill(params, tokens, frontend)
-        return _greedy(logits), cache
+    With ``mesh`` (the dense, moe and vlm families; params placed by
+    ``sharding.shard_params``, in any rules: the step reads each leaf's
+    layout from its placements) the step computes in JAX's layout: this
+    rank's rows of ``tokens`` and ``frontend`` (every rank is given the
+    global batch), each weight gathered over "data" where it is used and
+    split over "model" (heads, ffn, vocab; EP for the experts), flash
+    attention on the rank's heads, no grad and no remat, the MoE routing
+    over the global rows. Every rank returns the global batch's next tokens
+    (JAX's value) and its own cache: its rows, its route's KV heads
+    (``decode_cache(mesh=)`` places them). A 1 x 1 mesh is the unsharded
+    step bit for bit. Another family raises: its sharded serving is the next
+    slice (ROADMAP.md §4)."""
+    if mesh is None:
+        def prefill_step(params, tokens, frontend=None):
+            return prefill_local(spec, params, tokens, frontend)
 
-    return prefill_step
+        return prefill_step
+    serving = _Serving(spec, mesh)
+
+    def sharded_prefill_step(params, tokens, frontend=None):
+        own, rows = serving.rows(tokens.shape[0])
+        local = {n: sharding.local(p) for n, p in params.items()}
+        with torch.no_grad(), layers.data_parallel_rows(rows), layers.split_compute(serving.layout(params)):
+            return prefill_local(spec, local, tokens[own], None if frontend is None else frontend[own], rows)
+
+    return sharded_prefill_step
 
 
-def build_serve_step(spec: ModelSpec) -> Callable:
+def build_serve_step(spec: ModelSpec, mesh=None) -> Callable:
     """serve_step(params, cache, tokens (B, 1), pos) -> (next token (B, 1)
-    int32, cache): one greedy decode step against the KV/state cache."""
+    int32, cache): one greedy decode step against the KV/state cache.
 
-    def serve_step(params, cache, tokens, pos: int):
-        logits, cache = spec.decode_step(params, cache, tokens, pos)
-        return _greedy(logits), cache
+    With ``mesh``: the cache is ``decode_cache(mesh=)``'s, updated in place
+    in each rank's shard (the sequence split over "model" by
+    ``cache_pspec``: the new K/V row written by the rank whose chunk holds
+    ``pos``, attention combined over the chunks), ``tokens`` the global
+    batch's, the compute as ``build_prefill_step``'s; every rank returns the
+    global batch's next tokens."""
+    if mesh is None:
+        def serve_step(params, cache, tokens, pos: int):
+            return decode_local(spec, params, cache, tokens, pos)
 
-    return serve_step
+        return serve_step
+    serving = _Serving(spec, mesh)
+
+    def sharded_serve_step(params, cache, tokens, pos: int):
+        own, rows = serving.rows(tokens.shape[0])
+        local = {n: sharding.local(p) for n, p in params.items()}
+        shard = {k: sharding.local(v) if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
+        with torch.no_grad(), layers.data_parallel_rows(rows), layers.split_compute(serving.layout(params, cache)):
+            nxt, shard = decode_local(spec, local, shard, tokens[own], pos, rows)
+        cache["length"] = shard["length"]
+        return nxt, cache
+
+    return sharded_serve_step

@@ -18,6 +18,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig, ShapeConfig
 from repro_torch.models import common, dense, encdec, mamba2, rwkv6
+from repro_torch.models.layers import split_model
 
 _FAMILY = {
     "dense": dense,
@@ -87,15 +88,23 @@ class ModelSpec:
     def prefill(self, params, tokens, frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Full-context forward collecting decode state. Returns
         (last_logits (B, V), cache); the cache's ``length`` is the token
-        count S, as in JAX."""
+        count S, as in JAX. In a split step (``layers.split_compute``) the
+        logits are this rank's vocab columns where the vocab is split, and
+        the cache holds the rows given and this rank's KV heads."""
         logits, _, collected = self.forward(params, tokens, frontend, remat=False, collect_kv=True,
                                             unembed_last_only=True)
         return logits[:, -1], self._assemble_cache(collected, tokens.shape[1])
 
     def _assemble_cache(self, collected, S: int) -> Dict[str, Any]:
-        """The family's collected state under its cache names (JAX's)."""
+        """The family's collected state under its cache names (JAX's). In a
+        split step with more than one "model" rank a GQA family's k and v
+        hold this rank's KV heads, and ``kv_heads`` lists each rank's
+        [start, stop) for ``launch/steps.py::decode_cache`` to move them
+        from heads to sequence."""
         fam = self.cfg.family
         if fam in ("dense", "moe", "vlm"):
+            if split_model() is not None:
+                return {"k": collected[0], "v": collected[1], "length": S, "kv_heads": dense.kv_head_ranges(self.cfg)}
             names = ("k", "v")
         elif fam == "encdec":
             names = ("k", "v", "ck", "cv")

@@ -20,6 +20,16 @@ them, and q heads that do not divide over "model" are computed on every
 rank), flash attention runs on the local heads, and ``wo`` is row-parallel;
 the FFN and the MoE as ``layers``; the embedding, the logits and the loss
 (``ModelSpec.loss``) are vocab-parallel.
+
+The sharded prefill and decode steps (``launch/steps.py``, under no grad)
+compute in the same layout. Prefill's cache holds this rank's rows and the
+KV heads its route computed (``kv_head_ranges``); ``decode_cache`` moves
+them from heads to sequence. Decode keeps JAX's cache layout
+(``cache_pspec``: the sequence split over "model", every KV head whole on
+each rank): the new token's K/V of every KV head is written by the rank
+whose chunk holds its position, q of every head attends over each rank's
+chunk (``layers.sharded_decode_attention``), and the rank's heads go into
+the row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -31,8 +41,9 @@ from repro_torch.configs import ModelConfig
 from repro_torch.distributed.sharding import P, head_route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
-from repro_torch.models.layers import (AttnParams, decode_attention, model_split, moe_ffn, project_qkv, qkv_epilogue,
-                                       rmsnorm, split_model, swiglu, use_weight, use_weights)
+from repro_torch.models.layers import (AttnParams, cache_split, decode_attention, model_split, moe_ffn, project_qkv,
+                                       qkv_epilogue, rmsnorm, sharded_decode_attention, split_model, swiglu, use_weight,
+                                       use_weights)
 
 def schema(cfg: ModelConfig) -> Dict[str, Any]:
     d, L = cfg.d_model, cfg.n_layers
@@ -103,13 +114,28 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, aux: bool = False, expert
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"], tp=model_split("blocks.w_gate", -1)), 0.0
 
 
-def _split_attention(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: torch.Tensor):
-    """Attention in a split step: (the layer's attention output (B, S, d),
-    k, v of the heads this rank computed)."""
+def _routes(cfg: ModelConfig, ranks=None):
+    """The ``head_route`` of each "model" rank of ``ranks`` (default: this
+    rank alone) in a split step."""
+    tp = split_model()
+    q_split, kv_split = model_split("blocks.wq", -1) is not None, model_split("blocks.wk", -1) is not None
+    return [head_route(cfg.n_heads, cfg.n_kv_heads, tp.size, i, q_split, kv_split)
+            for i in (ranks if ranks is not None else [tp.index])]
+
+
+def kv_head_ranges(cfg: ModelConfig):
+    """Each "model" rank's KV heads [start, stop) in a split step, in rank
+    order: the heads its K/V projections compute."""
+    return tuple(r.kv for r in _routes(cfg, range(split_model().size)))
+
+
+def _split_qkv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: torch.Tensor):
+    """The attention projections of a split step: (q of the route's q
+    heads, k and v of its KV heads (``route.kv``), the route, the ``wo`` it
+    computes with: the rank's rows, or the whole where it is replicated)."""
     tp = split_model()
     hd = cfg.resolved_head_dim
-    route = head_route(cfg.n_heads, cfg.n_kv_heads, tp.size, tp.index, model_split("blocks.wq", -1) is not None,
-                       model_split("blocks.wk", -1) is not None)
+    route = _routes(cfg)[0]
     ap = _attn_params(cfg, p)
     if route.route == "replicated":  # every rank computes every head: the whole projections, gathered
         def whole(name, w):
@@ -119,9 +145,7 @@ def _split_attention(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: to
 
         ap = AttnParams(**{n: whole(n, getattr(ap, n)) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
                         q_norm=ap.q_norm, k_norm=ap.k_norm)
-        q, k, v = project_qkv(cfg, ap, h, positions)
-        o = flash_attention(q, k, v, causal=True)
-        return o.reshape(*o.shape[:2], -1) @ ap.wo, k, v
+        return (*project_qkv(cfg, ap, h, positions), route, ap.wo)
     kv = {"wk": ap.wk, "wv": ap.wv, "bk": ap.bk, "bv": ap.bv}
     if route.route == "kv_gather":  # the whole KV projections; this rank's q heads read heads route.kv
         cols = slice(route.kv[0] * hd, route.kv[1] * hd)
@@ -129,12 +153,25 @@ def _split_attention(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: to
                      else tp.copy(w))[..., cols] for name, w in kv.items() if w is not None}
     norm = {"q_norm": tp.copy(ap.q_norm), "k_norm": tp.copy(ap.k_norm)} if ap.q_norm is not None else {}
     ap = AttnParams(wq=ap.wq, wo=ap.wo, bq=ap.bq, **{n: kv.get(n) for n in ("wk", "wv", "bk", "bv")}, **norm)
-    q, k, v = qkv_epilogue(cfg, ap, *tp.column_parallel(h, ap.wq, ap.wk, ap.wv), positions)
+    return (*qkv_epilogue(cfg, ap, *tp.column_parallel(h, ap.wq, ap.wk, ap.wv), positions), route, ap.wo)
+
+
+def _split_out(route, o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The attention output of the route's q heads ``o`` (B, S, heads, hd)
+    through ``wo``: replicated, or row-parallel over "model"."""
+    o = o.reshape(*o.shape[:2], -1)
+    return o @ wo if route.route == "replicated" else split_model().row_parallel(o, wo)
+
+
+def _split_attention(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: torch.Tensor):
+    """Attention in a split step: (the layer's attention output (B, S, d),
+    k, v of the KV heads this rank computed, ``route.kv``)."""
+    q, k, v, route, wo = _split_qkv(cfg, p, h, positions)
+    kq, vq = k, v
     if route.kv_of_q is not None:  # local q heads that are not whole GQA groups: one KV head per q head
         index = torch.tensor(route.kv_of_q, device=k.device)
-        k, v = k.index_select(2, index), v.index_select(2, index)
-    o = flash_attention(q, k, v, causal=True)
-    return tp.row_parallel(o.reshape(*o.shape[:2], -1), ap.wo), k, v
+        kq, vq = k.index_select(2, index), v.index_select(2, index)
+    return _split_out(route, flash_attention(q, kq, vq, causal=True), wo), k, v
 
 
 def _block(
@@ -206,7 +243,8 @@ def forward(
     """Full-sequence forward. Returns (logits, aux_loss, kv | None).
 
     kv (if collected): (k, v) each (L, B, Sf + S, KV, hd) — the prefill
-    cache; aux_loss is then 0, as in JAX (the sum over layers otherwise).
+    cache (in a split step the KV heads of this rank's route); aux_loss is
+    then 0, as in JAX (the sum over layers otherwise).
     ``unembed_last_only`` skips the (B, S, V) logit tensor (prefill path).
     ``remat``: each layer's activations are recomputed in the backward
     (JAX's ``jax.checkpoint`` of the layer body).
@@ -247,9 +285,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 
 
 def cache_pspec():
-    """KV sequence-sharded over "model" (flash-decoding combine via SPMD),
-    batch over ("pod","data") — see DESIGN.md §4 (JAX's specs; the port
-    has no sharded decode step yet: the dry run reads them)."""
+    """KV sequence-sharded over "model" (flash-decoding combine:
+    ``layers.sharded_decode_attention``), batch over ("pod","data") — see
+    DESIGN.md §4 (JAX's specs). ``launch/steps.py::decode_cache(mesh=)``
+    places a cache by them, and the dry run counts its bytes by them."""
     return {
         "k": P(None, ("pod", "data"), "model", None, None),
         "v": P(None, ("pod", "data"), "model", None, None),
@@ -267,19 +306,60 @@ def decode_step(
     """One decode step. Returns (logits (B, V), cache).
 
     The cache's k/v are updated IN PLACE at ``pos`` (JAX returns a new
-    cache; writing the one new row saves copying the whole cache)."""
-    x = params["embed"][tokens]  # (B, 1, d)
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    for layer, p_l in enumerate(layer_stack(params)):
-        h = rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
-        q, k, v = project_qkv(cfg, _attn_params(cfg, p_l), h, positions)
-        cache["k"][layer, :, pos] = k[:, 0]
-        cache["v"][layer, :, pos] = v[:, 0]
-        o = decode_attention(q, cache["k"][layer], cache["v"][layer], pos + 1)
-        x = x + o.reshape(B, 1, -1) @ p_l["wo"]
-        h = rmsnorm(x, p_l["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(cfg, p_l, h)[0]
+    cache; writing the one new row saves copying the whole cache). In a
+    split step with more than one "model" rank the layers take
+    ``_split_decode_layer``, the cache is this rank's (its rows; its chunk
+    of the sequence where ``cache_pspec`` splits it) and the logits are this
+    rank's vocab columns where the vocab is split."""
+    x = embed_inputs(cfg, params, tokens)  # (B, 1, d)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64, device=x.device)
+    body = _decode_layer if split_model() is None else _split_decode_layer
+    for layer, p_l in enumerate(layer_stack(params)):  # a layer's gathered weights live in its call only
+        x = body(cfg, use_weights(p_l, "blocks"), x, cache, layer, pos, positions)
     logits = unembed(cfg, params, x)[:, 0]
     cache["length"] = pos + 1
     return logits, cache
+
+
+def _decode_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, cache, layer: int, pos: int,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """One layer of the decode step: the new token's K/V written at
+    ``pos``, attention over the cache's valid prefix."""
+    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = project_qkv(cfg, _attn_params(cfg, p), h, positions)
+    cache["k"][layer, :, pos] = k[:, 0]
+    cache["v"][layer, :, pos] = v[:, 0]
+    o = decode_attention(q, cache["k"][layer], cache["v"][layer], pos + 1)
+    x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + _ffn(cfg, p, h)[0]
+
+
+def _split_decode_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, cache, layer: int, pos: int,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """One layer of a split decode step: the projections by the head route;
+    the new token's K/V of every KV head (``gather_heads``) written at
+    ``pos`` by the rank whose chunk holds it (by every rank where the cache
+    is whole); q of every head; attention over the sharded cache (or the
+    whole); the rank's heads into ``wo``; the FFN split as in training."""
+    tp, seq = split_model(), cache_split("k", 2)
+    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v, route, wo = _split_qkv(cfg, p, h, positions)
+    ranges = kv_head_ranges(cfg)
+    k, v = tp.gather_heads(k, ranges, 2), tp.gather_heads(v, ranges, 2)
+    if route.route != "replicated":
+        q = tp.gather(q, 2, partial_grad=False)  # every q head (the ranks' heads are consecutive)
+    k_cache, v_cache = cache["k"][layer], cache["v"][layer]
+    if seq is None:
+        k_cache[:, pos], v_cache[:, pos] = k[:, 0], v[:, 0]
+        o = decode_attention(q, k_cache, v_cache, pos + 1)
+    else:
+        chunk = k_cache.shape[1]
+        if pos // chunk == seq.index:
+            k_cache[:, pos % chunk], v_cache[:, pos % chunk] = k[:, 0], v[:, 0]
+        o = sharded_decode_attention(q, k_cache, v_cache, pos + 1, seq)
+    if route.route != "replicated":
+        o = o[:, :, route.q[0]:route.q[1]]
+    x = x + _split_out(route, o, wo)
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + _ffn(cfg, p, h)[0]

@@ -18,6 +18,9 @@ thread):
   "model", and the ops then take Megatron's pair (``ModelParallel.copy`` in,
   ``reduce`` out): swiglu and gelu_mlp column-parallel in and row-parallel
   out, the MoE's experts over "model" (EP), each rank combining its own.
+  The sharded serving steps compute in it too (under no grad), and a
+  decode step's cache layout rides along (``cache_split``): a cache whose
+  sequence is split over "model" takes ``sharded_decode_attention``.
 
 Outside them (no mesh, serving, the engine) ``use_weight`` returns the
 weight and every op is the unsharded one.
@@ -45,16 +48,19 @@ NEG_INF = -1e30  # finite mask value: -inf - -inf would be NaN
 
 
 class Split:
-    """The compute layout of one split train step. ``specs``: each leaf's
-    storage spec by dotted name, for one layer of a stacked leaf (the layers
-    entry dropped); ``weights``: the FSDP gather over "data"; ``model``: the
-    "model" axis (None with one rank: nothing is split over it)."""
+    """The compute layout of one split step. ``specs``: each leaf's storage
+    spec by dotted name, for one layer of a stacked leaf (the layers entry
+    dropped); ``weights``: the FSDP gather over "data"; ``model``: the
+    "model" axis (None with one rank: nothing is split over it); ``cache``:
+    a decode step's cache entries' specs by name (the local layout of its
+    cache, as ``cache_pspec`` places it)."""
 
-    def __init__(self, specs, weights: DataParallelWeights, model: Optional[ModelParallel]):
+    def __init__(self, specs, weights: DataParallelWeights, model: Optional[ModelParallel], cache=None):
         self.weights, self.model = weights, model
         self.rank = {n: len(s) for n, s in specs.items()}
         self.data_dim = {n: _data_dim(s) for n, s in specs.items()}
         self.model_dim = {n: split_dim(compute_spec(s), MODEL_AXIS) for n, s in specs.items()}
+        self.cache_dim = {n: split_dim(s, MODEL_AXIS) for n, s in (cache or {}).items()}
 
 
 def _data_dim(spec) -> Optional[int]:
@@ -104,6 +110,16 @@ def split_model() -> Optional[ModelParallel]:
     """The "model" axis of the split step (None outside one, or with one
     rank)."""
     return None if _SPLIT is None else _SPLIT.model
+
+
+def cache_split(name: str, dim: int) -> Optional[ModelParallel]:
+    """The "model" axis, where a decode step's cache entry ``name`` is split
+    over it along ``dim`` (the sequence of a K/V cache); else None (no
+    split step, one rank, or a cache the axis does not divide: whole on
+    every rank)."""
+    if _SPLIT is None or _SPLIT.model is None:
+        return None
+    return _SPLIT.model if _SPLIT.cache_dim.get(name) == dim else None
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -218,6 +234,37 @@ def decode_attention(
     # engine's paged path shares this recipe so greedy tokens agree
     out = torch.einsum("bkgs,bskh->bkgh", w.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+def sharded_decode_attention(
+    q: torch.Tensor,  # (B, 1, H, hd): every q head
+    k_cache: torch.Tensor,  # (B, S_local, KV, hd): this rank's chunk of the sequence
+    v_cache: torch.Tensor,
+    length: int,  # valid prefix length of the whole sequence
+    seq: ModelParallel,  # the "model" axis the sequence is split over, in rank order
+) -> torch.Tensor:
+    """``decode_attention`` over a cache whose sequence is split over
+    "model" (JAX's flash-decoding combine, which GSPMD derives from its
+    softmax over the sharded axis). On each rank: fp32 scores of every q
+    head over its chunk, divided by sqrt(hd), positions >= ``length``
+    masked by the finite NEG_INF (a rank whose whole chunk is masked then
+    adds exact zeros, where -inf would give NaN); the global max by an
+    all-reduce MAX; the exps and their sum by an all-reduce SUM; the
+    weights exp / sum rounded to the cache dtype (JAX's softmax, then its
+    rounding before w·v); the partial w·v summed in fp32 over "model" and
+    rounded once. Returns (B, 1, H, hd) on every rank."""
+    B, _, H, hd = q.shape
+    S_local, KV = k_cache.shape[1], k_cache.shape[2]
+    g = H // KV
+    qg = q.reshape(B, KV, g, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float()
+    scores = scores / torch.tensor(math.sqrt(hd), dtype=torch.float32)
+    pos = seq.index * S_local + torch.arange(S_local, device=q.device)
+    scores = torch.where((pos < length)[None, None, None, :], scores, NEG_INF)
+    e = torch.exp(scores - seq.all_max(scores.amax(dim=-1, keepdim=True)))
+    w = (e / seq.reduce(e.sum(dim=-1, keepdim=True))).to(v_cache.dtype)
+    out = seq.reduce(torch.einsum("bkgs,bskh->bkgh", w.float(), v_cache.float()))
+    return out.to(v_cache.dtype).reshape(B, 1, H, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ a timeout of ``torch_step_rules.RUN_TIMEOUT`` seconds.
   sharded step gathers the whole model (encdec, rwkv6, mamba2; not
   ``launch/steps.py::SPLIT_FAMILIES``), each step against JAX's step;
 - a 1 x 1 mesh equals the unsharded step bit for bit (dense, moe, vlm,
-  encdec, rwkv6);
+  encdec, rwkv6), and so do the sharded prefill and decode steps (dense,
+  moe, vlm; the other families' raise);
 - elastic restore: saved on (2, 4), restored on (1, 1) and on (4, 2), the
   leaves equal, the next step equal.
 """
@@ -263,14 +264,22 @@ def test_1x1_mesh_is_the_unsharded_step_bit_for_bit(tmp_path, arch):
     """One arch of each family the split step serves (dense, moe, vlm with
     its frontend rows), and of two families whose sharded step gathers the
     whole model (encdec with its frame rows, rwkv6): on 1 x 1 every gather
-    is a view and every op the unsharded one."""
+    is a view and every op the unsharded one. The trained params then serve
+    a prompt (4 rows of 32 tokens, 4 new) through the sharded prefill and
+    decode steps and through the unsharded ones: tokens, logits and cache
+    bit-equal for the dense, moe and vlm families; the sharded steps of the
+    other families raise, naming ROADMAP.md §4."""
     pair, _ = start(tmp_path, arch, True, QWEN_TOKENS)
     extra = with_frontend(tmp_path, pair.spec.cfg, QWEN_TOKENS)
     out = run_ranks(tmp_path, "run", 1, arch=arch, mesh=[1, 1], axes=["data", "model"], accum=2, lr=LR,
                     compress=True, steps=2, ckpt_in=str(tmp_path / "ckpt_in"), step_in=0,
                     batch=str(tmp_path / "batch.npy"), ckpt_out=str(tmp_path / "ckpt_out"), save_after=[2],
-                    unsharded=True, **extra)
+                    unsharded=True, serve_check=True, **extra)
     assert out["metrics"] == out["unsharded"]
+    if pair.spec.cfg.family in ("dense", "moe", "vlm"):
+        assert out["serve_equal"] is True
+    else:
+        assert "ROADMAP.md §4" in out["serve_raises"]
     assert_states_equal(restored(tmp_path / "ckpt_out", arch, True, 2),
                         restored(tmp_path / "ckpt_out_unsharded", arch, True, 2))
 

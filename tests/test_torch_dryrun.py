@@ -13,6 +13,11 @@ package's layout, on the meta device with no process group:
 - a train cell of the dense, moe and vlm families counts the split step:
   at most one gathered layer, the gradient shard, FLOPs that split over
   "model", collectives from the meta run; the four largest archs fit;
+- their prefill and decode cells count the sharded serving steps: at most
+  one gathered layer, the cache by ``cache_pspec``; the 32k cells of the
+  four largest fit on 16 x 16 with no rank holding the whole model; the
+  meta FLOPs of a (1, 2) serve cell equal rank 0's on CPU gloo ranks
+  running the sharded steps (``torch_dist_worker.py``);
 - the CLI writes one cell's JSON.
 """
 import json
@@ -111,13 +116,17 @@ def test_every_cell_bytes_and_skips_equal_jax(tmp_path, mesh_kind):
             cfg = configs.get_config(arch)
             whole = ModelSpec(cfg).param_count()
             if dryrun.is_split(cfg, configs.SHAPES[shape_name]):
-                # the split step: at most one whole layer and the leaves outside the layers
-                # gathered; the fp32 gradient sum is the shard's (the residual's bytes)
+                # the split train step and the sharded prefill and decode steps: at most one
+                # whole layer and the leaves outside the layers gathered; a train cell's fp32
+                # gradient sum is the shard's (the residual's bytes)
                 outside = sum(math.prod(leaf.shape) for n, leaf in flat_leaves(ModelSpec(cfg).schema())
                               if leaf.axes[0] != "layers")
                 one_layer = (whole - outside) // cfg.n_layers
                 assert 0 < rec["port_step_bytes"]["gathered_params"] <= 2 * (one_layer + outside), (arch, shape_name)
-                assert rec["port_step_bytes"]["grad_sum"] == rec["bytes"]["residual"]
+                if configs.SHAPES[shape_name].kind == "train":
+                    assert rec["port_step_bytes"]["grad_sum"] == rec["bytes"]["residual"]
+                else:
+                    assert "grad_sum" not in rec["port_step_bytes"]
                 continue
             assert rec["port_step_bytes"]["gathered_params"] == 2 * whole
             if configs.SHAPES[shape_name].kind == "train":
@@ -207,6 +216,60 @@ def test_the_four_largest_archs_fit_a_card_when_split():
     for arch in ("qwen2.5-32b", "llava-next-34b", "llama4-scout-17b-a16e", "mistral-large-123b"):
         rec = dryrun.cell_bytes(arch, "train_4k", {"data": 16, "model": 16})
         assert rec["total_bytes"] <= 12e9, (arch, rec["total_bytes"])
+
+
+SERVE_ARCHS = ("mistral-large-123b", "llama4-scout-17b-a16e", "llava-next-34b", "qwen2.5-32b")
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+def test_the_largest_archs_serve_on_16x16_with_no_rank_holding_the_model(shape_name):
+    """The sharded prefill and decode cells on (16, 16): the params' shard,
+    one gathered layer, the cache by ``cache_pspec`` and the inputs fit one
+    NVIDIA H100 80GB HBM3 (the unsharded steps took the whole bf16 model a
+    device: 65-246 GB), and a rank's weights, stored and gathered, are far
+    below the whole model's. mistral-large-123b's decode cell also runs on
+    meta: ``use_weight`` held no more gathered at once than the count."""
+    mesh = {"data": 16, "model": 16}
+    for arch in SERVE_ARCHS:
+        rec = dryrun.cell_bytes(arch, shape_name, mesh)
+        whole = 2 * ModelSpec(configs.get_config(arch)).param_count()
+        held = rec["bytes"]["params"] + rec["port_step_bytes"]["gathered_params"]
+        assert rec["total_bytes"] <= dryrun.DEVICE_BYTES and held < whole / 20, (arch, rec["total_bytes"], held)
+        if shape_name == "decode_32k":  # the cache's sequence split over "model", its batch over "data"
+            cfg = configs.get_config(arch)
+            kv = 2 * 2 * cfg.n_layers * 128 * 32_768 * cfg.n_kv_heads * cfg.resolved_head_dim  # k and v, bf16
+            assert rec["bytes"]["cache"] == kv // 256 + 4, arch  # and the int32 length
+    rec = dryrun.count_cell("mistral-large-123b", shape_name, "single")
+    assert rec["fits"] and 0 < rec["use_weight_peak_bytes"] <= rec["port_step_bytes"]["gathered_params"]
+    assert rec["collective_bytes"]["model"] > 0 and rec["collective_bytes"]["fsdp_gather"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b"])
+def test_serve_cell_flops_on_meta_equal_the_sharded_steps_on_cpu(tmp_path, arch):
+    """A prefill and a decode cell of a reduced arch on (1, 2): the dry
+    run's meta count of the sharded step's body on rank 0 equals the FLOPs
+    rank 0 computes in the sharded steps on two CPU gloo ranks (the prefill
+    of (4, 16) tokens, and one decode step at the cell's last position of a
+    cache of its length)."""
+    import numpy as np
+
+    from test_torch_distributed import with_frontend
+    from torch_dist_worker import bits
+    from torch_step_rules import run_ranks
+
+    cfg = configs.get_reduced(arch)
+    spec = ModelSpec(cfg)
+    B, S, mesh = 4, 16, {"data": 1, "model": 2}
+    params = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    np.savez(tmp_path / "params.npz", **{n: bits(t) for n, t in params.items()})
+    np.save(tmp_path / "tokens.npy", np.random.default_rng(0).integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    out = run_ranks(tmp_path, "flops", 2, arch=arch, mesh=list(mesh.values()), axes=list(mesh), serve=True,
+                    params=str(tmp_path / "params.npz"), tokens=str(tmp_path / "tokens.npy"), flops=True,
+                    **with_frontend(tmp_path, cfg, np.zeros((B, S), np.int32)))
+    for kind, got in zip(("prefill", "decode"), out["flops"]):
+        meta = dryrun.cell_flops(cfg, ShapeConfig(f"{kind}_32k", S, B, kind), mesh)
+        assert meta["flops"] == got > 0, (kind, meta["flops"], got)
+        assert meta["collective_bytes"]["model"] > 0 and meta["collective_bytes"]["fsdp_gather"] == 0
 
 
 def test_cli_writes_a_cell(tmp_path):

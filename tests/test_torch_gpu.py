@@ -771,3 +771,97 @@ def test_split_step_two_ranks_on_the_card(cuda, tmp_path, arch):
         quant = quant_steps(out, k - 1, states[k]["params"]) if k >= 1 else None
         assert_one_step(states[k], states[k + 1], out["metrics"][k], _state_to(new, "cpu"),
                         {n: float(v) for n, v in m.items()}, quant)
+
+
+def _nccl_one_rank():
+    """A one-rank NCCL process group on a free local port, on this card."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b"])
+def test_sharded_serving_on_one_rank_nccl(cuda, arch):
+    """The sharded prefill and decode steps on a 1 x 1 mesh over a one-rank
+    NCCL group (``shard_params``, ``decode_cache(mesh=)``; olmoe's MoE
+    gathers its routing over the group, llava prepends its frontend rows)
+    equal the unsharded steps on the card bit for bit: a prompt of 4 rows
+    of 40 tokens and 6 new tokens, every step's tokens and logits and the
+    final cache. The prefill launches flash once a layer, on the
+    tensor-core route."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.launch.mesh import make_host_mesh
+    from torch_dist_worker import serve
+
+    _nccl_one_rank()
+    try:
+        mesh = make_host_mesh("cuda")
+        spec = ModelSpec(get_reduced(arch))
+        params = spec.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        batch = spec.smoke_batch(torch.Generator(device=cuda).manual_seed(1), batch=4, seq=40, device=cuda)
+        max_len = 48 + (spec.cfg.n_frontend_tokens if "frontend" in batch else 0)
+        reset_launch_counts()
+        got = serve(spec, mesh, shard_params(spec, params, mesh), batch["tokens"], batch.get("frontend"), max_len, 6)
+        assert launch_counts()["flash_attention"] == spec.cfg.n_layers
+        assert route_counts() == {"tensor_core": spec.cfg.n_layers, "cuda_core": 0}
+        want = serve(spec, None, params, batch["tokens"], batch.get("frontend"), max_len, 6)
+        assert torch.equal(got[0], want[0]) and len(got[1]) == len(want[1]) == 7
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+        for key in ("k", "v"):
+            _bits_equal(got[2][key], want[2][key])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_serving_two_ranks_on_the_card(cuda, tmp_path):
+    """Reduced qwen3-1.7b's sharded prefill and decode on (1, 2): two ranks
+    on the one card over gloo (tests/torch_dist_worker.py's serve case with
+    device "cuda"), the flash kernel on each rank's 2 of 4 heads, the cache's
+    sequence split over the ranks (a chunk of 16 of 32 positions), the
+    decode crossing the chunk boundary. Against the unsharded steps on the
+    card, teacher-forced on the run's tokens: logits within 2e-2 (TP sums
+    the ranks' partial products in fp32, the unsharded GEMM in another
+    order); a token the unsharded greedy would not pick lies within 2e-2 of
+    its max logit; the cache gathered within 3e-2."""
+    from repro_torch.launch.steps import decode_cache
+    from torch_dist_worker import bits
+    from torch_step_rules import run_ranks
+
+    arch, B, S, new, max_len = "qwen3-1.7b", 4, 14, 6, 32
+    spec = ModelSpec(get_reduced(arch))
+    params = spec.init(torch.Generator().manual_seed(3), device="cpu")
+    np.savez(tmp_path / "params.npz", **{n: bits(t) for n, t in params.items()})
+    tokens = np.random.default_rng(7).integers(0, spec.cfg.vocab, (B, S)).astype(np.int32)
+    np.save(tmp_path / "tokens.npy", tokens)
+    out = run_ranks(tmp_path, "serve", 2, arch=arch, mesh=[1, 2], axes=["data", "model"], device="cuda", serve=True,
+                    params=str(tmp_path / "params.npz"), tokens=str(tmp_path / "tokens.npy"), max_len=max_len, new=new)
+    assert out["launches"]["flash_attention"] == spec.cfg.n_layers
+    assert out["routes"] == {"tensor_core": spec.cfg.n_layers, "cuda_core": 0}
+    assert out["local_cache_shapes"] == [[spec.cfg.n_layers, B, max_len // 2, spec.cfg.n_kv_heads, 16]] * 2
+    served = torch.tensor(out["tokens"], dtype=torch.int32, device=cuda)
+    logits = torch.from_numpy(np.load(tmp_path / "serve" / "logits.npy")).to(cuda)
+    saved = np.load(tmp_path / "serve" / "cache.npz")
+    p = {n: t.to(cuda) for n, t in params.items()}
+    with torch.no_grad():
+        first, cache = spec.prefill(p, torch.from_numpy(tokens).to(cuda))
+        dc, plain = decode_cache(spec, cache, B, max_len, device=cuda), [first]
+        for i in range(new):
+            lg, dc = spec.decode_step(p, dc, served[:, i:i + 1], S + i)
+            plain.append(lg)
+    plain = torch.stack(plain).float()
+    gap = float((logits - plain).abs().max())
+    ties = plain.max(-1).values.T - plain.permute(1, 0, 2).gather(-1, served.long()[..., None])[..., 0]
+    cache_gap = max(float((torch.from_numpy(saved[k]).view(torch.bfloat16).to(cuda).float() - dc[k].float()).abs().max())
+                    for k in ("k", "v"))
+    print(f"two ranks on the card: logits {gap:.4g} from the unsharded steps', largest token gap "
+          f"{float(ties.max()):.4g}, cache {cache_gap:.4g}")
+    assert gap <= 2e-2 and float(ties.max()) <= 2e-2 and cache_gap <= 3e-2

@@ -12,7 +12,8 @@ CASE.json: "kind" and its fields; rank 0 writes ``out`` (JSON).
   function of the whole tensors, each gradient against autograd of that
   function (the ranks' parts gathered), and the vocab-parallel cross
   entropy (fp32) against ``F.cross_entropy`` of the whole logits, with
-  rows whose max lies on another rank's range. Writes the largest gaps.
+  rows whose max lies on another rank's range; the serving steps'
+  collectives (``serving_ops``). Writes the largest gaps.
 - kind "model": ``arch`` (reduced) on ``mesh`` / ``axes`` in fp32 (the
   params drawn from ``seed`` in fp32 on every rank, the same batch): the
   split step's loss and the gradient of each leaf, summed over the
@@ -161,9 +162,49 @@ def ops_case(case, rank: int, world: int) -> dict:
                             reduction="none").reshape(6, 4)
     gaps["cross entropy bf16 logits"] = _gap(tp.cross_entropy(lg16, targets, rank * (V // world)), ref16) / scale
     gaps["max on another rank's range"] = float(not bool((logits[::2].argmax(-1) == V - 1).all()))
+    gaps.update(serving_ops(tp, rank, world, gen))
     out = torch.tensor([gaps[k] for k in sorted(gaps)])
     dist.all_reduce(out, op=dist.ReduceOp.MAX)
     return dict(zip(sorted(gaps), out.tolist()))
+
+
+def serving_ops(tp: ModelParallel, rank: int, world: int, gen) -> dict:
+    """The sharded serving steps' collectives against their single-process
+    functions: decode attention over a sequence split into rank chunks
+    (fp32) against ``decode_attention`` on the whole cache, at lengths that
+    leave no chunk, the last rank's chunk, and every chunk but the first's
+    first position masked (a chunk wholly masked must add exact zeros, no
+    NaN); the greedy argmax over vocab-split logits with ties within a
+    rank's range and across ranks (the lowest global id); every head
+    gathered from head ranges that are disjoint, overlapping and uneven
+    (a "kv_gather" route), or whole on every rank."""
+    gaps = {"sharded decode attention": 0.0, "sharded decode attention not finite": 0.0}
+    B, KV, g, hd, chunk = 2, 2, 2, 8, 5
+    S = chunk * world
+    q = torch.randn((B, 1, KV * g, hd), generator=gen)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen) for _ in range(2))
+    own = slice(rank * chunk, (rank + 1) * chunk)
+    for length in (S, chunk * (world - 1), 1):
+        got = layers.sharded_decode_attention(q, k[:, own], v[:, own], length, tp)
+        gaps["sharded decode attention"] = max(gaps["sharded decode attention"],
+                                               _gap(got, layers.decode_attention(q, k, v, length)))
+        gaps["sharded decode attention not finite"] += float(not bool(torch.isfinite(got).all()))
+    V = 4 * world
+    logits = torch.randn((4, V), generator=gen).to(torch.bfloat16)
+    logits[0, ::4] = 5.0  # the max at every rank's first id: 0
+    logits[1, [V - 3, V - 1]] = 7.0  # a tie within the last rank's range
+    logits[2, [5, V - 1]] = 9.0  # a tie across ranks 1 and world - 1
+    got = tp.argmax(logits.chunk(world, dim=-1)[rank], rank * 4)
+    gaps["vocab-split argmax"] = float(not torch.equal(got, torch.argmax(logits.float(), dim=-1)))
+    gaps["gather heads"] = 0.0
+    n = world + 1
+    whole = torch.randn((2, 3, n, 4), generator=gen)
+    disjoint = [(r, r + 1) for r in range(world - 1)] + [(world - 1, n)]  # the last rank holds two heads
+    overlapping = [(0, 2), (1, n)] if world == 2 else [(0, 1), (0, 2), (1, n)]
+    for ranges in (disjoint, overlapping, [(0, n)] * world):
+        a, b = ranges[rank]
+        gaps["gather heads"] = max(gaps["gather heads"], _gap(tp.gather_heads(whole[:, :, a:b], ranges, 2), whole))
+    return gaps
 
 
 def split_layout(spec, mesh, specs):
