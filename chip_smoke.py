@@ -21,7 +21,10 @@ Phases (any failure exits non-zero; so does a missing card):
      (16 KV heads of 16 query heads: a group of 1); flash attention also at
      phase 6's shapes (whisper's encoder and cross-attention, non-causal;
      zamba2's shared block at head dim 112), at the train shapes of phases
-     7 and 9, and at a phase 10 rank's prefill, (4, 381, 8, 128) / KV 4.
+     7 and 9, at a phase 10 rank's prefill, (4, 381, 8, 128) / KV 4, and
+     at phase 11's per-rank shapes (whisper's encoder, self- and
+     cross-attention at 4 heads of 64, zamba2's shared block at 16 of 112,
+     in its prefill and its train step).
   4. serving — full-width qwen3-1.7b (random weights from a seed) through
      the port's TieredEngine: every kernel launched as often as the
      deterministic policy requires, every flash call on the tensor-core
@@ -132,6 +135,29 @@ Phases (any failure exits non-zero; so does a missing card):
      tensor-core, at (4, 381, 8, 128) / KV 4; both ranks' tokens equal.
      Prints each rank's peak, prefill ms, decode-step ms and tok/s with no
      limit: gloo's host staging, not NVLink.
+ 11. split families — full-width whisper-base, rwkv6-3b and zamba2-7b
+     (random weights from the seed) through the split steps: serving at
+     full depth with phase 6's prompts (and whisper's frames), FAMILY_SPLIT_NEW
+     tokens each, the cache at SERVE_MAX_LEN; one train step at seq 4096
+     with the config's train_4k microbatch rows (FAMILY_TRAIN_ACCUM
+     microbatches) at full width and FAMILY_TRAIN_LAYERS' depth (printed
+     beside the depth the dry run would allow on one card). (a) The
+     unsharded steps on the card. (c) 1 x 1 over a one-rank NCCL group:
+     tokens, every step's logits, step 0's metrics and every updated
+     parameter bit-equal to (a); flash launches exact, tensor-core. (b)
+     (data 1, model 2), two ranks on the card over gloo (as phase 9): each
+     served token within phase 6's max(NEAR_TIE, 2 x bf16 noise) of (a)'s
+     teacher-forced max logit on its prefix; each rank's cache entries
+     ``cache_pspec``'s local shapes, its allocation within
+     FAMILY_CACHE_RTOL of the dry run's ``cache_bytes``, and its train
+     state's within DRYRUN_MEM_RTOL of the dry run's; flash launches a rank
+     exact (the prefill's at the rank's heads, none in decode; the train
+     step's as (a)'s), all tensor-core; step 0's loss and grad norm within
+     SPLIT_LOSS_RTOL / SPLIT_GNORM_RTOL of (a)'s, each leaf's mu within
+     SPLIT_MU_TOL (gains, biases and rwkv6's leaves SPLIT_MU_TOL_SUMS) of
+     its max. Prints prefill, decode and step ms, tok/s, peaks and each
+     rank's idle share (profiled decode steps and train step) with no
+     limit, and the phase's seconds by arch.
 
 The line before the last is the card as nvidia-smi names it, the one
 before that a JSON object with one entry per kernel, and the last line
@@ -243,11 +269,61 @@ SERVE_MAX_LEN = 416
 SERVE_PATH = f"serve sharded 1x2 {SERVE_ARCH}"
 SERVE_1X1_PATH = f"serve sharded 1x1 {SERVE_ARCH}"
 SERVE_FLASH = 28  # prefill launches a rank: one a layer
+# phase 11: the encdec, rwkv6 and mamba2 families split over (data 1, model
+# 2) and 1 x 1: serving at full depth with phase 6's prompts and the cache
+# at SERVE_MAX_LEN, FAMILY_SPLIT_NEW tokens a prompt (phase 6's 32 cut:
+# gloo's collectives take ~1 ms each, and zamba2's decode step runs ~400),
+# and one train step at train_4k's sequence with the config's microbatch
+# rows (over FAMILY_TRAIN_ACCUM microbatches: whisper's 16 rows of fp32
+# logits over its 51,865-word vocab, whole on each rank, would not fit two
+# ranks at once), at full width and FAMILY_TRAIN_LAYERS' depth
+FAMILY_SPLIT_MESH = (1, 2)
+FAMILY_SPLIT_NEW = 8
+FAMILY_TRAIN_ACCUM = {"whisper-base": 4, "rwkv6-3b": 2, "zamba2-7b": 2}
+# the depth trained (None: full): the dry run would allow far more on one
+# card (printed), but gloo stages each rank's collectives through the host
+# at ~1-2 GB/s, so a layer costs seconds a step; zamba2 keeps two
+# applications of its shared block (6 Mamba layers each)
+FAMILY_TRAIN_LAYERS = {"whisper-base": None, "rwkv6-3b": 4, "zamba2-7b": 12}
+# each rank's decode cache against the dry run's cache_bytes, the bytes
+# requested from the allocator (``requested_bytes``; the dry run counts the
+# int32 length too)
+FAMILY_CACHE_RTOL = 1e-4
+# step 0 against the unsharded step's: phase 9's limits (SPLIT_LOSS_RTOL,
+# SPLIT_GNORM_RTOL, SPLIT_MU_TOL and SPLIT_MU_TOL_SUMS), or twice the
+# unsharded bf16 step's own distance from the same step in fp32 where that
+# is larger: random full-width weights make rwkv6's bf16 gradients mostly
+# rounding (its unsharded bf16 gradient lies 4-64 % of a leaf's max from
+# fp32 at 4 layers and seq 1024, scripts/rwkv6_bf16_grad_noise.py on the
+# CPU; at seq 4096 on an H100 its grad norm is 37.1 in bf16 and 4,960 in
+# fp32). The split's fp32 loss and gradients against the unsharded model's
+# in fp32, of each leaf's max: the split changes the layout, not the
+# function (a gradient counted twice is off by its leaf's max). rwkv6's
+# fp32 gradient is itself ill-conditioned: the split lay 5.27e-3 from it on
+# w0 at seq 4096 on an H100 (1.0e-4 at seq 1024 on the CPU; at reduced
+# width its own fp32 gradient lies 1.4e-4 from fp64,
+# tests/test_torch_tp_ops.py), so it is held to 2e-2
+FAMILY_FP32_TOL = {"rwkv6-3b": 2e-2}
+FAMILY_FP32_TOL_DEFAULT = 1e-3
+# flash attention at phase 11's per-rank shapes: a rank's heads of phase 6's
+# prefill and of its train step (whisper: 4 rows a microbatch, 1,024 frames;
+# zamba2: 1 row)
+FLASH_SPLIT_FAMILY_SHAPES = (
+    ("whisper-base serve split 1x2 encoder, a rank's heads", 4, 103, 103, 4, 4, 64, False),
+    ("whisper-base serve split 1x2 self-attention, a rank's heads", 4, 381, 381, 4, 4, 64, True),
+    ("whisper-base serve split 1x2 cross-attention, a rank's heads", 4, 381, 103, 4, 4, 64, False),
+    ("zamba2-7b serve split 1x2 shared block, a rank's heads", 4, 381, 381, 16, 16, 112, True),
+)
+FLASH_SPLIT_FAMILY_TRAIN_SHAPES = (
+    ("whisper-base train split 1x2 self-attention, a rank's heads", 4, 4096, 4096, 4, 4, 64, True),
+    ("whisper-base train split 1x2 cross-attention, a rank's heads", 4, 4096, 1024, 4, 4, 64, False),
+    ("zamba2-7b train split 1x2 shared block, a rank's heads", 1, 4096, 4096, 16, 16, 112, True),
+)
 # flash attention at the train shape (forward and backward), at a split
 # rank's heads, and its backward at phase 6's shapes too
 FLASH_TRAIN_SHAPE = ("qwen3-1.7b train", 1, 4096, 4096, 16, 8, 128, True)
 FLASH_SPLIT_SHAPE = ("qwen3-1.7b train split 1x2, a rank's heads", 1, 4096, 4096, 8, 4, 128, True)
-FLASH_BWD_SHAPES = (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE) + FLASH_FAMILY_SHAPES
+FLASH_BWD_SHAPES = (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE) + FLASH_FAMILY_SHAPES + FLASH_SPLIT_FAMILY_TRAIN_SHAPES
 # and the forward at a rank's heads in phase 10's prefill (serving has no backward)
 FLASH_SERVE_SHAPE = ("qwen3-1.7b serve split 1x2, a rank's heads", 4, 381, 381, 8, 4, 128, True)
 # the backward's dq, dk, dv: besides TOL's allclose, each tensor within this
@@ -712,7 +788,8 @@ def check_flash_family_shapes():
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE,
-                                                                    FLASH_SERVE_SHAPE):
+                                                                    FLASH_SERVE_SHAPE) + \
+            FLASH_SPLIT_FAMILY_SHAPES + FLASH_SPLIT_FAMILY_TRAIN_SHAPES:
         fq = torch.randn((B, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
         fk, fv = (torch.randn((B, S_kv, KV, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         reset_launch_counts()
@@ -762,9 +839,25 @@ def decode_floor_bytes(cfg, params, cache, pos: int, batch: int) -> int:
     return n
 
 
+def family_inputs(cfg, dev):
+    """Phase 6's prompts (FAMILY_BATCH, FAMILY_PROMPT) int32 from the seed
+    and, for an encdec, its frames: (FAMILY_PROMPT + FAMILY_NEW) // 4 of
+    them from the same generator (phase 6's cross cache is exactly the
+    frames), bf16; else None."""
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab - 1, size=(FAMILY_BATCH, FAMILY_PROMPT)).astype(np.int32))
+    frontend = None
+    if cfg.family == "encdec":
+        frontend = torch.from_numpy(rng.normal(size=(FAMILY_BATCH, (FAMILY_PROMPT + FAMILY_NEW) // 4,
+                                                     cfg.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
+    return prompt.to(dev), frontend
+
+
 def serve_family(cfg, card):
     """Phase 6: full-width ``cfg`` through ``build_prefill_step`` and
-    ``build_serve_step``. Returns the main run's launch counts."""
+    ``build_serve_step``. Returns (the main run's launch counts, the
+    near-tie limit of its served tokens: max(NEAR_TIE, 2 x the bf16
+    noise))."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
@@ -776,12 +869,7 @@ def serve_family(cfg, card):
     B, S, n = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW
     max_len = S + n
     params = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    rng = np.random.default_rng(SEED)
-    prompt = torch.from_numpy(rng.integers(1, cfg.vocab - 1, size=(B, S)).astype(np.int32)).to(dev)
-    frontend = None
-    if cfg.family == "encdec":  # max_len // 4 frames: the cross cache is exactly the frames
-        frontend = torch.from_numpy(rng.normal(size=(B, max_len // 4, cfg.d_model)).astype(np.float32))
-        frontend = frontend.to(dev, torch.bfloat16)
+    prompt, frontend = family_inputs(cfg, dev)
     weights = sum(t.numel() * t.element_size() for t in params.values())
     print(f"  config {cfg.name}: {spec.param_count() / 1e9:.3f} B params ({weights / 1e9:.3f} GB); "
           f"{B} prompts of {S} tokens, {n} tokens each"
@@ -889,7 +977,7 @@ def serve_family(cfg, card):
         raise AssertionError(f"fp32 decode is {scan_err} from the forward: the scan is not the recurrence")
     if worst > bound:
         raise AssertionError(f"a served token is {worst} below the teacher-forced max logit")
-    return counts
+    return counts, bound
 
 
 @contextlib.contextmanager
@@ -1482,7 +1570,7 @@ def split_rank(rank: int, port: int, ref, queue) -> None:
             flash_before, tc_before = launch_counts()["flash_attention"], route_counts()["tensor_core"]
             traced = i == 0 and rank == 0
             dist.barrier()  # both ranks start the step together (rank 0 reads its profile after step 0)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced \
+            with profile(activities=[ProfilerActivity.CUDA]) if traced \
                     else contextlib.nullcontext() as prof:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1555,6 +1643,7 @@ def split_training(card, step0):
     wall = time.perf_counter() - t0
     ranks = sorted((queue.get() for _ in range(2)), key=lambda r: r["rank"])
     del ref
+    torch.cuda.ipc_collect()  # the blocks the ranks held through CUDA IPC
     torch.cuda.empty_cache()
     want_m = step0["metrics"]
     print(f"  two ranks on {card}, gloo with CUDA tensors, mesh (data 1, model 2); {wall:.1f} s with the ranks' start")
@@ -1613,16 +1702,10 @@ def split_training(card, step0):
             ranks)
 
 
-def serve_prompt(cfg, dev):
-    """Phase 6's prompts: (FAMILY_BATCH, FAMILY_PROMPT) int32 from the seed."""
-    rng = np.random.default_rng(SEED)
-    return torch.from_numpy(rng.integers(1, cfg.vocab - 1, size=(FAMILY_BATCH, FAMILY_PROMPT)).astype(np.int32)).to(dev)
-
-
-def serve_run(spec, params, prompt, mesh=None):
-    """Prefill, then FAMILY_NEW - 1 greedy decode steps through the step
+def serve_run(spec, params, prompt, mesh=None, frontend=None, new=FAMILY_NEW):
+    """Prefill, then ``new`` - 1 greedy decode steps through the step
     builders (sharded on ``mesh``, or unsharded), the cache at
-    SERVE_MAX_LEN. Returns (tokens (B, FAMILY_NEW), each step's logits as
+    SERVE_MAX_LEN. Returns (tokens (B, ``new``), each step's logits as
     the steps' greedy is given them, prefill ms, decode ms a step)."""
     from repro_torch.launch import steps
 
@@ -1638,7 +1721,7 @@ def serve_run(spec, params, prompt, mesh=None):
         prefill_step, serve_step = steps.build_prefill_step(spec, mesh), steps.build_serve_step(spec, mesh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok, cache = prefill_step(params, prompt)
+        tok, cache = prefill_step(params, prompt, frontend)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         dc = steps.decode_cache(spec, cache, B, SERVE_MAX_LEN, device=prompt.device, mesh=mesh)
@@ -1646,14 +1729,14 @@ def serve_run(spec, params, prompt, mesh=None):
         toks = [tok]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        for i in range(FAMILY_NEW - 1):
+        for i in range(new - 1):
             tok, dc = serve_step(params, dc, tok, S + i)
             toks.append(tok)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
     finally:
         steps.greedy = inner
-    return torch.cat(toks, dim=1), logits, (t1 - t0) * 1e3, (t3 - t2) / (FAMILY_NEW - 1) * 1e3
+    return torch.cat(toks, dim=1), logits, (t1 - t0) * 1e3, (t3 - t2) / (new - 1) * 1e3
 
 
 def serve_rank(rank: int, port: int, queue) -> None:
@@ -1686,7 +1769,7 @@ def serve_rank(rank: int, port: int, queue) -> None:
         params = sharding.shard_params(spec, whole, mesh)
         del whole
         torch.cuda.empty_cache()
-        prompt = serve_prompt(spec.cfg, dev)
+        prompt = family_inputs(spec.cfg, dev)[0]
         B, S = prompt.shape
         tok, cache = build_prefill_step(spec, mesh)(params, prompt)  # warm-up: first calls, gloo's buffers
         build_serve_step(spec, mesh)(params, decode_cache(spec, cache, B, SERVE_MAX_LEN, mesh=mesh), tok, S)
@@ -1749,7 +1832,7 @@ def sharded_serving(card):
     cfg = get_config(SERVE_ARCH)
     spec = ModelSpec(cfg)
     params = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    prompt = serve_prompt(cfg, dev)
+    prompt = family_inputs(cfg, dev)[0]
     B, S = prompt.shape
     print(f"  {SERVE_ARCH}: {B} prompts of {S} tokens, {FAMILY_NEW} tokens each, cache max_len {SERVE_MAX_LEN}")
     # (a) the reference
@@ -1826,6 +1909,489 @@ def sharded_serving(card):
     return counts_1x1, routes_1x1, ranks
 
 
+def family_train_config(arch: str):
+    """The config phase 11 trains: full width, FAMILY_TRAIN_LAYERS' depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg, layers = get_config(arch), FAMILY_TRAIN_LAYERS[arch]
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def family_train_batch(cfg, dev):
+    """Phase 11's train batch: the config's train_4k microbatch rows of
+    TRAIN_SEQ tokens from ``SyntheticLM`` and, for an encdec, TRAIN_SEQ // 4
+    frames a row from the seed, bf16."""
+    from repro_torch.data.pipeline import SyntheticLM
+
+    rows = cfg.microbatch["train_4k"]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(cfg.vocab, TRAIN_SEQ, rows, seed=SEED)
+             .batch_at(0).items()}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        batch["frontend"] = torch.randn((rows, TRAIN_SEQ // 4, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    return batch
+
+
+def host_train_state(spec, dev):
+    """``make_train_state``'s state with a residual, drawn on the card from
+    the seed (phase 11's (a) draws the same), moved to the host: placed on a
+    mesh, the card then holds its shards alone."""
+    from repro_torch.launch.steps import make_train_state
+
+    state = make_train_state(spec, torch.Generator(device=dev).manual_seed(SEED), compress=True, device=dev)
+    host = lambda leaves: {n: t.detach().cpu() for n, t in leaves.items()}  # noqa: E731
+    out = {"params": host(state["params"]), "residual": host(state["residual"]),
+           "opt": state["opt"]._replace(mu=host(state["opt"].mu), nu=host(state["opt"].nu),
+                                        master=host(state["opt"].master))}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_depth_allowed(arch: str, ref_bytes_per_param: int = 4) -> int:
+    """The most layers the port's dry run lets two (1, 2) ranks and the
+    unsharded step's bf16 params and mu (shared with them) hold on one card
+    at train_4k (activations not counted): the depth a memory cut would
+    take."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import DEVICE_BYTES, cell_bytes
+    from repro_torch.models.api import ModelSpec
+
+    full, axes = get_config(arch), dict(zip(("data", "model"), FAMILY_SPLIT_MESH))
+    best = 0
+    for n in range(1, full.n_layers + 1):
+        cfg = dataclasses.replace(full, n_layers=n)
+        need = 2 * cell_bytes(arch, "train_4k", axes, cfg=cfg)["total_bytes"] + \
+            ref_bytes_per_param * ModelSpec(cfg).param_count()
+        if need > DEVICE_BYTES:
+            break
+        best = n
+    return best
+
+
+def flash_recorder(shapes: dict):
+    """A stand-in for ``dense.flash_attention`` that counts each call's
+    shape in ``shapes``: (q's shape, the KV heads, the KV length)."""
+    from repro_torch.models import dense
+
+    inner = dense.flash_attention
+
+    def recording(q, k, v, *, causal=True):
+        key = (tuple(q.shape), k.shape[2], k.shape[1])  # q (B, S, heads, hd); the KV heads and length
+        shapes[key] = shapes.get(key, 0) + 1
+        return inner(q, k, v, causal=causal)
+
+    return recording
+
+
+def requested_bytes() -> int:
+    """The bytes this process holds from the caching allocator as they were
+    requested, before its rounding (a block under 1 MB past a request of
+    over 1 MB is handed out whole, so ``memory_allocated`` can exceed a
+    small tensor's bytes by up to 1 MB), once the blocks freed while gloo's
+    copies were still using them are released (the allocator frees those
+    when their streams finish)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def busy_share(prof, wall_ms: float):
+    """(device busy ms of a profiled window, its idle share of ``wall_ms``):
+    the union of this process's device ops (not gloo's annotations). The
+    windows of the ranks trace the card alone: reading a host trace of a
+    gloo-bound train step takes about a minute."""
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith("gloo:")]
+    if not on_device:
+        raise AssertionError("the profiler saw no device op")
+    busy = union_ms(on_device)
+    return busy, 1 - busy / wall_ms
+
+
+def family_rank(rank: int, port: int, arch: str, ref, queue) -> None:
+    """One rank of phase 11 (b) (a spawned process on device 0): ``arch``'s
+    seed params placed on the (1, 2) mesh and served (a warm-up, then the
+    run with the counts set to 0 before it; its last two decode steps under
+    the profiler), then phase 11's train config's state placed on the mesh
+    the split loss and gradients in fp32 from it, then one step (under the
+    profiler). ``ref``: the unsharded step's step-0 mu, and the unsharded
+    model's fp32 loss and gradients, on the card (CUDA IPC). Puts its
+    numbers on ``queue``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import OptimConfig, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch.steps import (build_prefill_step, build_serve_step, build_train_step, compute_layout,
+                                          decode_cache, shard_train_state)
+    from repro_torch.models import dense, layers
+    from repro_torch.models.api import ModelSpec
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=SPLIT_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", FAMILY_SPLIT_MESH, mesh_dim_names=("data", "model"))
+        out = {"rank": rank, "stages": {}}
+        mark = time.perf_counter()
+
+        def stage(name):  # this rank's seconds since the last stage
+            nonlocal mark
+            out["stages"][name] = time.perf_counter() - mark
+            mark = time.perf_counter()
+
+        # serving at full depth
+        spec = ModelSpec(get_config(arch))
+        whole = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        params = sharding.shard_params(spec, whole, mesh)
+        del whole
+        torch.cuda.empty_cache()
+        prompt, frontend = family_inputs(spec.cfg, dev)
+        B, S = prompt.shape
+        prefill_step, serve_step = build_prefill_step(spec, mesh), build_serve_step(spec, mesh)
+        short = 64  # warm-up on a short prompt: first calls, gloo's buffers
+        tok, cache = prefill_step(params, prompt[:, :short], None if frontend is None else frontend[:, :short // 4])
+        serve_step(params, decode_cache(spec, cache, B, SERVE_MAX_LEN, mesh=mesh), tok, short)
+        del cache
+        stage("params and warm-up")
+        shapes = {}
+        flash, dense.flash_attention = dense.flash_attention, flash_recorder(shapes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tok, cache = prefill_step(params, prompt, frontend)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill_launches"] = dict(launch_counts())
+        before = requested_bytes()
+        dc = decode_cache(spec, cache, B, SERVE_MAX_LEN, mesh=mesh)
+        out["cache_grown"] = requested_bytes() - before
+        del cache
+        toks = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(FAMILY_SPLIT_NEW - 3):
+            tok, dc = serve_step(params, dc, tok, S + i)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        out["decode_ms"] = (time.perf_counter() - t0) / (FAMILY_SPLIT_NEW - 3) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(FAMILY_SPLIT_NEW - 3, FAMILY_SPLIT_NEW - 1):
+                tok, dc = serve_step(params, dc, tok, S + i)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        out["decode_busy_ms"], out["decode_idle"] = busy_share(prof, wall)
+        out["decode_busy_ms"] /= 2
+        out.update(tokens=torch.cat(toks, dim=1).cpu().numpy(), serve_launches=dict(launch_counts()),
+                   serve_routes=dict(route_counts()), serve_shapes=dict(shapes),
+                   cache_shapes={k: tuple(sharding.local(v).shape) for k, v in dc.items()
+                                 if isinstance(v, torch.Tensor)},
+                   serve_peak=torch.cuda.max_memory_allocated())
+        del params, dc
+        torch.cuda.empty_cache()
+        stage("serving")
+        # one train step at phase 11's depth
+        cfg = family_train_config(arch)
+        tspec = ModelSpec(cfg)
+        host = host_train_state(tspec, dev)
+        before = requested_bytes()
+        state = shard_train_state(tspec, host, mesh)
+        out["state_grown"] = requested_bytes() - before
+        del host
+        stage("train state")
+        optim = OptimConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS + 1)
+        batch = family_train_batch(cfg, dev)
+        sizes, coord = sharding.mesh_shape(mesh), sharding.mesh_coordinate(mesh)
+        # the split in fp32 (the layout of the step, its params cast up) against the unsharded model's
+        local32 = {n: sharding.local(p).detach().float().requires_grad_(True) for n, p in state["params"].items()}
+        with layers.split_compute(compute_layout(tspec, mesh, state["params"])):
+            grads32, loss32 = build_train_step(tspec, optim, FAMILY_TRAIN_ACCUM[arch]).grads_and_loss(local32, batch)
+        del local32
+        out["fp32_loss_gap"] = abs(float(loss32) - ref["loss32"]) / abs(ref["loss32"])
+        out["fp32_gaps"] = {}
+        for name, g in grads32.items():
+            want = ref["grads32"][name]
+            sl = sharding.shard_slices(want.shape, sharding.spec_of(state["params"][name]), sizes, coord)
+            out["fp32_gaps"][name] = float((g - want[sl]).abs().max()) / max(float(want.abs().max()), 1e-30)
+        del grads32
+        torch.cuda.empty_cache()
+        stage("fp32")
+        step = build_train_step(tspec, optim, FAMILY_TRAIN_ACCUM[arch], mesh=mesh)
+        shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["step_busy_ms"], out["step_idle"] = busy_share(prof, out["step_ms"])
+        out.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   train_launches=dict(launch_counts()), train_routes=dict(route_counts()),
+                   train_shapes=dict(shapes), train_peak=torch.cuda.max_memory_allocated())
+        dense.flash_attention = flash
+        out["mu_gaps"] = {}
+        for name, p in state["params"].items():
+            sl = sharding.shard_slices(ref["mu"][name].shape, sharding.spec_of(p), sizes, coord)
+            mine, want = sharding.local(state["opt"].mu[name]), ref["mu"][name][sl].float()
+            out["mu_gaps"][name] = float((mine - want).abs().max()) / max(float(ref["mu"][name].float().abs().max()),
+                                                                        1e-30)
+        stage("train step")
+        queue.put(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def split_family(arch: str, card: str, near_tie: float):
+    """Phase 11 for ``arch``: (a) the unsharded serving and train steps on
+    the card; (c) 1 x 1 over a one-rank NCCL group, bit-equal to (a); (b)
+    (1, 2) as two ranks on the card over gloo (``family_rank``). Returns
+    ({path: (launch counts, routes)} of the four runs, (b)'s ranks)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import OptimConfig, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch.dryrun import cache_bytes, cell_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, decode_cache, make_train_state, shard_train_state
+    from repro_torch.models.api import ModelSpec
+    from repro_torch.models.common import flat_leaves
+    from repro_torch.optim.adamw import global_norm
+
+    t_arch = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    spec = ModelSpec(cfg)
+    params = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompt, frontend = family_inputs(cfg, dev)
+    B, S = prompt.shape
+    tcfg, tspec = family_train_config(arch), ModelSpec(family_train_config(arch))
+    accum, batch = FAMILY_TRAIN_ACCUM[arch], family_train_batch(family_train_config(arch), dev)
+    rows = batch["tokens"].shape[0]
+    allowed = family_depth_allowed(arch)
+    print(f"  {arch}: serving {B} prompts of {S} tokens, {FAMILY_SPLIT_NEW} tokens each, cache max_len "
+          f"{SERVE_MAX_LEN}{'' if frontend is None else f', frames {tuple(frontend.shape)}'}; training "
+          f"{tspec.param_count() / 1e9:.3f} B params at {tcfg.n_layers} layers of {cfg.n_layers} (the dry run at "
+          f"(1, 2) allows {allowed} on one card, activations not counted; cut to {tcfg.n_layers} for gloo's step "
+          f"time), seq {TRAIN_SEQ}, {rows} rows in {accum} microbatches")
+    optim = OptimConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS + 1)
+    paths = {}
+    flash_prefill = FAMILY_FLASH[arch]
+
+    def check_launches(path, n):
+        counts, routes = paths[path]
+        if counts != {**{k: 0 for k in counts}, "flash_attention": n} or routes != {"tensor_core": n, "cuda_core": 0}:
+            raise AssertionError(f"{path}: launches {counts}, routes {routes}; want {n} flash, all tensor-core")
+
+    # (a) the unsharded serving steps; (c) the same over a one-rank NCCL group, bit for bit
+    ref_tokens, ref_logits, ref_prefill, ref_decode = serve_run(spec, params, prompt, None, frontend, FAMILY_SPLIT_NEW)
+    print(f"  (a) unsharded serving: prefill {ref_prefill:.1f} ms, decode {ref_decode:.2f} ms a step, "
+          f"{B / ref_decode * 1e3:.1f} tok/s — on {card}")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh("cuda")
+        sharded = sharding.shard_params(spec, params, mesh)
+        del params  # drawn again for (b)'s reference
+        reset_launch_counts()
+        tokens_1x1, logits_1x1, _, _ = serve_run(spec, sharded, prompt, mesh, frontend, FAMILY_SPLIT_NEW)
+        paths[f"serve split 1x1 {arch}"] = (launch_counts(), route_counts())
+        del sharded
+        serve_same = torch.equal(tokens_1x1, ref_tokens) and len(logits_1x1) == len(ref_logits) and \
+            all(torch.equal(a, b) for a, b in zip(logits_1x1, ref_logits))
+        del ref_logits, logits_1x1
+        torch.cuda.empty_cache()
+        # (a) the unsharded train step 0
+        state = make_train_state(tspec, torch.Generator(device=dev).manual_seed(SEED), compress=True, device=dev)
+        params32 = {n: p.detach().float() for n, p in state["params"].items()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = build_train_step(tspec, optim, accum)(state, batch)
+        torch.cuda.synchronize()
+        ref_step_ms = (time.perf_counter() - t0) * 1e3
+        ref_flash = launch_counts()["flash_attention"]
+        ref_m = {k: float(v) for k, v in m.items()}
+        ref_params = {n: p.detach().clone() for n, p in state["params"].items()}
+        ref = {"mu": {n: t.to(torch.bfloat16) for n, t in state["opt"].mu.items()}}
+        print(f"  (a) unsharded train step 0: loss {ref_m['loss']:.6f} grad_norm {ref_m['grad_norm']:.6f}; "
+              f"{ref_step_ms:.1f} ms, {rows * TRAIN_SEQ / ref_step_ms * 1e3:.0f} tokens/s; flash {ref_flash}; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB — on {card}")
+        del state, m
+        torch.cuda.empty_cache()
+        # the unsharded model in fp32 on the same batch: the split's fp32 reference, and the bf16 step's own
+        # noise (its loss, grad norm and mu against those the fp32 gradient gives)
+        leaves32 = {n: t.requires_grad_(True) for n, t in params32.items()}
+        grads32, loss32 = build_train_step(tspec, optim, accum).grads_and_loss(leaves32, batch)
+        del leaves32, params32
+        torch.cuda.empty_cache()
+        # (c) the train step on 1 x 1, the state drawn as (a)'s
+        host = host_train_state(tspec, dev)
+        sharded = shard_train_state(tspec, host, mesh)
+        del host
+        reset_launch_counts()
+        sharded, m = build_train_step(tspec, optim, accum, mesh=mesh)(sharded, batch)
+        paths[f"train split 1x1 {arch}"] = (launch_counts(), route_counts())
+        train_same = {k: float(v) for k, v in m.items()} == ref_m and \
+            all(torch.equal(sharding.local(p), ref_params[n]) for n, p in sharded["params"].items())
+        del sharded, m, ref_params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    gnorm32 = float(global_norm(grads32))
+    scale32 = min(1.0, optim.grad_clip / (gnorm32 + 1e-9))
+    noise = {"loss": abs(ref_m["loss"] - float(loss32)) / ref_m["loss"],
+             "grad_norm": abs(ref_m["grad_norm"] - gnorm32) / ref_m["grad_norm"]}
+    noise_mu = {n: float((ref["mu"][n].float() - (1 - optim.b1) * scale32 * g).abs().max())
+                / max(float(ref["mu"][n].float().abs().max()), 1e-30) for n, g in grads32.items()}
+    ref.update(grads32=grads32, loss32=float(loss32))
+    sums = {n for n, leaf in flat_leaves(tspec.schema()) if sum(a != "layers" for a in leaf.axes) <= 1}
+    mu_tols = {n: max(SPLIT_MU_TOL_SUMS if n in sums else SPLIT_MU_TOL, 2 * noise_mu[n]) for n in noise_mu}
+    loss_tol, gnorm_tol = max(SPLIT_LOSS_RTOL, 2 * noise["loss"]), max(SPLIT_GNORM_RTOL, 2 * noise["grad_norm"])
+    noisiest = sorted(noise_mu, key=lambda n: -noise_mu[n])[:3]
+    print(f"  (a) the same step in fp32: loss {float(loss32):.6f} grad_norm {gnorm32:.6f}; the bf16 step's own "
+          f"distance from it: loss {noise['loss']:.3g}, grad norm {noise['grad_norm']:.3g}, mu (of its max) "
+          + ", ".join(f"{n} {noise_mu[n]:.3g}" for n in noisiest))
+    print(f"  (c) 1 x 1 over NCCL: serving tokens and every step's logits bit-equal to (a): {serve_same}; train "
+          f"step 0's metrics and every updated param bit-equal to (a): {train_same}; launches "
+          + ", ".join(f"{p}: {c['flash_attention']} flash, {r}" for p, (c, r) in paths.items()))
+    if not (serve_same and train_same):
+        raise AssertionError(f"{arch}: the split steps on 1 x 1 are not the unsharded steps bit for bit")
+    check_launches(f"serve split 1x1 {arch}", flash_prefill)
+    check_launches(f"train split 1x1 {arch}", ref_flash)
+    # (b) two ranks on the card over gloo
+    queue = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    mp.spawn(family_rank, args=(free_port(), arch, ref, queue), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = sorted((queue.get() for _ in range(2)), key=lambda r: r["rank"])
+    del ref, grads32
+    torch.cuda.ipc_collect()  # the blocks the ranks held through CUDA IPC
+    torch.cuda.empty_cache()
+    params = spec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)  # drawn again, as (a)'s
+    served = torch.from_numpy(ranks[0]["tokens"]).to(dev)
+    with torch.no_grad():  # the unsharded steps teacher-forced on the run's tokens
+        first, cache = spec.prefill(params, prompt, frontend)
+        dc, steps_ = decode_cache(spec, cache, B, SERVE_MAX_LEN, device=dev), [first]
+        del cache
+        for i in range(FAMILY_SPLIT_NEW - 1):
+            lg, dc = spec.decode_step(params, dc, served[:, i:i + 1], S + i)
+            steps_.append(lg)
+    forced = torch.stack(steps_, dim=1).float()
+    del dc, steps_, params
+    torch.cuda.empty_cache()
+    gaps = forced.max(-1).values - forced.gather(-1, served.long()[..., None])[..., 0]
+    worst = float(gaps.max())
+    axes = dict(zip(("data", "model"), FAMILY_SPLIT_MESH))
+    dry_cache = cache_bytes(spec, B, SERVE_MAX_LEN, axes)
+    dry_train = cell_bytes(arch, "train_4k", axes, cfg=tcfg)
+    want_state = dry_train["bytes"]["state"] + dry_train["bytes"]["residual"]
+    pspec = spec.cache_pspec()
+    want_shapes = {k: sharding.local_shape(t.shape, sharding.filter_spec_for_mesh(pspec[k], axes, t.shape), axes)
+                   for k, t in spec.cache_specs(B, SERVE_MAX_LEN).items() if t.dim()}
+    hd = cfg.resolved_head_dim
+    print(f"  (b) two ranks on {card}, gloo with CUDA tensors, mesh (data 1, model 2); {wall:.1f} s with the ranks' "
+          f"start; tokens: {int((served != ref_tokens).sum())} of {served.numel()} differ from (a)'s; the largest gap "
+          f"of a served token to (a)'s teacher-forced max logit on its prefix {worst:.4f} (tol phase 6's "
+          f"max({NEAR_TIE}, 2 x bf16 noise) = {near_tie:.4f}), {int((gaps == 0).sum())}/{gaps.numel()} at the max; "
+          "rank 0's seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["stages"].items()))
+    for r in ranks:
+        gap = abs(r["cache_grown"] - dry_cache) / dry_cache
+        state_gap = abs(r["state_grown"] - want_state) / want_state
+        dl = abs(r["loss"] - ref_m["loss"]) / ref_m["loss"]
+        dg = abs(r["grad_norm"] - ref_m["grad_norm"]) / ref_m["grad_norm"]
+        worst_mu = sorted(r["mu_gaps"], key=lambda n: -r["mu_gaps"][n] / mu_tols[n])[:3]
+        worst32 = max(r["fp32_gaps"], key=lambda n: r["fp32_gaps"][n])
+        tol32 = FAMILY_FP32_TOL.get(arch, FAMILY_FP32_TOL_DEFAULT)
+        print(f"  rank {r['rank']} serving: cache {r['cache_shapes']}, requested {r['cache_grown'] / 1e6:.3f} MB "
+              f"against the dry run's {dry_cache / 1e6:.3f} MB: gap {gap:.2e} (tol {FAMILY_CACHE_RTOL}); prefill "
+              f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms']:.2f} ms a step, {B / r['decode_ms'] * 1e3:.1f} tok/s "
+              f"(gloo's host staging, not NVLink); profiled decode: busy {r['decode_busy_ms']:.2f} ms a step, idle "
+              f"share {r['decode_idle']:.3f}; flash {r['serve_shapes']}; peak {r['serve_peak'] / 1e9:.2f} GB")
+        print(f"  rank {r['rank']} training: state + residual {r['state_grown'] / 1e9:.3f} GB against the dry run's "
+              f"{want_state / 1e9:.3f} GB: gap {state_gap:.2e} (tol {DRYRUN_MEM_RTOL}); step 0 loss {r['loss']:.6f} "
+              f"grad_norm {r['grad_norm']:.6f}: gaps to (a) {dl:.3g} (tol {loss_tol:.3g}), {dg:.3g} (tol "
+              f"{gnorm_tol:.3g}); mu, the largest of their tolerance: "
+              + ", ".join(f"{n} {r['mu_gaps'][n]:.3g} (tol {mu_tols[n]:.3g})" for n in worst_mu)
+              + f"; in fp32 against the unsharded model: loss {r['fp32_loss_gap']:.3g} (tol {SPLIT_LOSS_RTOL}), "
+              f"gradients {r['fp32_gaps'][worst32]:.3g} of the leaf's max at most ({worst32}; tol {tol32})"
+              + f"; step {r['step_ms']:.1f} ms (profiled), {rows * TRAIN_SEQ / r['step_ms'] * 1e3:.0f} tokens/s, "
+              f"busy {r['step_busy_ms']:.1f} ms, idle share {r['step_idle']:.3f}; flash {r['train_shapes']}; peak "
+              f"{r['train_peak'] / 1e9:.2f} GB against the dry run's {dry_train['total_bytes'] / 1e9:.3f} GB a device "
+              f"(activations not counted) — on {card}")
+        if r["cache_shapes"] != want_shapes:
+            raise AssertionError(f"rank {r['rank']}: the cache's local shapes {r['cache_shapes']} are not "
+                                 f"cache_pspec's {want_shapes}")
+        if gap > FAMILY_CACHE_RTOL:
+            raise AssertionError(f"rank {r['rank']}: the cache's allocation is not the dry run's cache_bytes")
+        if state_gap > DRYRUN_MEM_RTOL:
+            raise AssertionError(f"rank {r['rank']}: the dry run's state bytes are not the card's allocation")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError("the two ranks returned different tokens")
+        if r["serve_launches"] != {**{k: 0 for k in r["serve_launches"]}, "flash_attention": flash_prefill} or \
+                r["prefill_launches"] != r["serve_launches"] or \
+                r["serve_routes"] != {"tensor_core": flash_prefill, "cuda_core": 0}:
+            raise AssertionError(f"rank {r['rank']}: serving launches {r['serve_launches']} (prefill "
+                                 f"{r['prefill_launches']}), {r['serve_routes']}; want {flash_prefill} flash in the "
+                                 "prefill, none in decode, all tensor-core")
+        if r["train_launches"] != {**{k: 0 for k in r["train_launches"]}, "flash_attention": ref_flash} or \
+                r["train_routes"] != {"tensor_core": ref_flash, "cuda_core": 0}:
+            raise AssertionError(f"rank {r['rank']}: train launches {r['train_launches']}, {r['train_routes']}; "
+                                 f"want the unsharded step's {ref_flash} flash, all tensor-core")
+        heads = {(q[2], q[3], kv) for q, kv, _ in list(r["serve_shapes"]) + list(r["train_shapes"])}
+        local = cfg.n_heads // FAMILY_SPLIT_MESH[1]
+        if heads - {(local, hd, cfg.n_kv_heads // FAMILY_SPLIT_MESH[1])}:
+            raise AssertionError(f"rank {r['rank']}: flash ran at (heads, hd, KV heads) {heads}, not a rank's "
+                                 f"{local} heads")
+        if r["fp32_loss_gap"] > SPLIT_LOSS_RTOL or r["fp32_gaps"][worst32] > tol32:
+            raise AssertionError(f"rank {r['rank']}: in fp32 the split loss or gradients are not the unsharded "
+                                 f"model's ({r['fp32_loss_gap']:.3g}, {worst32} {r['fp32_gaps'][worst32]:.3g})")
+        if dl > loss_tol or dg > gnorm_tol:
+            raise AssertionError(f"rank {r['rank']}: the split step 0's loss or grad norm is not (a)'s")
+        off = {n: g for n, g in r["mu_gaps"].items() if not g <= mu_tols[n]}
+        if off:
+            raise AssertionError(f"rank {r['rank']}: the split step 0's mu is not (a)'s in {off}")
+    if worst > near_tie:
+        raise AssertionError(f"a served token is {worst} below the unsharded steps' max logit")
+    for part in ("serve", "train"):
+        counts = {k: sum(r[f"{part}_launches"][k] for r in ranks) for k in ranks[0][f"{part}_launches"]}
+        routes = {k: sum(r[f"{part}_routes"][k] for r in ranks) for k in ranks[0][f"{part}_routes"]}
+        paths[f"{part} split 1x2 {arch}"] = (counts, routes)
+    print(f"  {arch}: {time.perf_counter() - t_arch:.1f} s")
+    return paths, ranks
+
+
+def split_families(card, bounds):
+    """Phase 11: ``split_family`` of each of FAMILY_ARCHS. Returns {path:
+    (launch counts, routes)} and each arch's ranks."""
+    paths, ranks = {}, {}
+    for arch in FAMILY_ARCHS:
+        got, ranks[arch] = split_family(arch, card, bounds[arch])
+        paths.update(got)
+        torch.cuda.empty_cache()
+    return paths, ranks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1859,10 +2425,10 @@ def main() -> int:
     with phase("serving, MoE"):
         counts_moe, routes_moe = serve(moe_full, moe_reduced, card, prompts)
     torch.cuda.empty_cache()
-    counts_family = {}
+    counts_family, family_bounds = {}, {}
     with phase("serving, other families"):
         for arch in FAMILY_ARCHS:
-            counts_family[arch] = serve_family(get_config(arch), card)
+            counts_family[arch], family_bounds[arch] = serve_family(get_config(arch), card)
             torch.cuda.empty_cache()
     with phase("training"):
         flash_backward = check_flash_backward()
@@ -1877,6 +2443,9 @@ def main() -> int:
     del step0
     with phase("sharded serving"):
         counts_serve, routes_serve, serve_ranks = sharded_serving(card)
+    torch.cuda.empty_cache()
+    with phase("split families"):
+        family_paths, family_ranks = split_families(card, family_bounds)
     torch.cuda.empty_cache()
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
@@ -1905,7 +2474,8 @@ def main() -> int:
                                      f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name],
                                      SPLIT_PATH: flash_split if name == "flash_attention" else 0,
                                      SERVE_1X1_PATH: counts_serve[name],
-                                     SERVE_PATH: sum(r["launches"][name] for r in serve_ranks)}
+                                     SERVE_PATH: sum(r["launches"][name] for r in serve_ranks),
+                                     **{path: c[name] for path, (c, _) in family_paths.items()}}
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
     kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS
@@ -1915,13 +2485,18 @@ def main() -> int:
                                                   f"train {TRAIN_ARCH}": routes_train["tensor_core"],
                                                   SHARDED_PATH: routes_sharded["tensor_core"], SPLIT_PATH: tc_split,
                                                   SERVE_1X1_PATH: routes_serve["tensor_core"],
-                                                  SERVE_PATH: sum(r["routes"]["tensor_core"] for r in serve_ranks)}
+                                                  SERVE_PATH: sum(r["routes"]["tensor_core"] for r in serve_ranks),
+                                                  **{path: r["tensor_core"] for path, (_, r) in family_paths.items()}}
     kernels[3]["launches_per_train_step"] = TRAIN_FLASH_PER_STEP
     kernels[3]["split_launches_per_rank_per_step"] = {f"rank {r['rank']}": [x["flash"] for x in r["steps"]]
                                                       for r in split_ranks}
     kernels[3]["split_shape_per_rank"] = FLASH_SPLIT_SHAPE[0] + ": (1, 4096, 8, 128) / KV 4 causal"
     kernels[3]["serve_launches_per_rank"] = {f"rank {r['rank']}": r["launches"]["flash_attention"] for r in serve_ranks}
     kernels[3]["serve_shape_per_rank"] = {f"rank {r['rank']}": r["shapes"] for r in serve_ranks}
+    kernels[3]["split_family_shapes_per_rank"] = {
+        f"{part} split 1x2 {arch} rank {r['rank']}": {f"q {q} / KV {kv} of {n_kv}": n for (q, kv, n_kv), n in
+                                                      r[f"{part}_shapes"].items()}
+        for arch, rs in family_ranks.items() for r in rs for part in ("serve", "train")}
     kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
                                "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
                                "bound_ms": x["bound"][0], "bound_by": x["bound"][1],

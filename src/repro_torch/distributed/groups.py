@@ -14,20 +14,24 @@ reduce-scatter, as an all-reduce, which gloo and NCCL both have).
 ``ShapeOnlyRows`` stands in for it on the meta device, where the dry run
 counts the work of one rank among ``size``.
 
-**Split compute** (the dense, moe and vlm families' sharded step, JAX's
-``use_weight`` and ``shard_hint`` layout):
+**Split compute** (every family's sharded step, JAX's ``use_weight`` and
+``shard_hint`` layout):
 
 - ``DataParallelWeights.gather``: a weight's FSDP shards gathered over
   "data" at its use site, leaving its "model" shard; the backward sums the
   weight's gradient over every data-parallel rank ("pod" and "data") in the
   param dtype (bf16, as GSPMD reduces) and keeps this rank's block: a
   reduce-scatter into the rank's shard, as an all-reduce plus the own block.
+  A weight used several times a microbatch (zamba2's shared block) is
+  gathered at each use through an ``anchor``, so the sum of the uses'
+  gradients is reduced once.
 - ``ModelParallel``: Megatron's pair, ``copy`` (identity forward,
   all-reduce backward: where a replicated tensor enters model-parallel
   compute) and ``reduce`` (all-reduce forward, identity backward: where
-  partial sums leave it); ``gather`` over "model" (a cut KV head's
-  neighbours, or a projection computed replicated); the vocab-parallel
-  fp32 cross entropy.
+  partial sums leave it); ``all_sum`` (all-reduce both ways: a sum over
+  "model" that each rank's own columns use, Mamba2's gated norm);
+  ``gather`` over "model" (a cut KV head's neighbours, or a projection
+  computed replicated); the vocab-parallel fp32 cross entropy.
 
 **Sharded serving** (the split prefill and decode steps, under no grad):
 ``ModelParallel.all_max`` and ``reduce`` (decode attention's combine over a
@@ -167,6 +171,56 @@ class _ColumnParallel(torch.autograd.Function):
         return (_all_reduce(grad_x, ctx.group).to(x.dtype), None, *grad_ws)
 
 
+class _AllSum(torch.autograd.Function):
+    """All-reduce (sum) forward and backward: a sum over "model" whose
+    result each rank uses in its own split compute (every rank's gradient
+    of the sum is a part of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _Anchor(torch.autograd.Function):
+    """A stride-0 stand-in of the whole (gathered) weight, made once a
+    microbatch: each use's ``_GatherAt`` hands its gradient to it, autograd
+    sums them, and its backward reduces the sum over ``reduce_group`` once
+    and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, w, shape, dim, size: int, index: int, reduce_group):
+        ctx.dim, ctx.size, ctx.index, ctx.reduce_group = dim, size, index, reduce_group
+        return w.new_zeros(()).expand(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.reduce_group is not None:
+            grad = _all_reduce(grad, ctx.reduce_group)
+        if ctx.dim is not None and ctx.size > 1:
+            grad = grad.chunk(ctx.size, dim=ctx.dim)[ctx.index]
+        return grad, None, None, None, None, None
+
+
+class _GatherAt(torch.autograd.Function):
+    """``w`` gathered along ``dim`` over ``group`` (a view where it is not
+    split); the gradient goes to ``anchor`` unreduced."""
+
+    @staticmethod
+    def forward(ctx, w, anchor, dim, group, size: int):
+        if dim is None or size == 1:
+            return w.detach().clone()
+        return _all_gather(w, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad, None, None, None
+
+
 class _RowParallel(torch.autograd.Function):
     """``x @ w`` for this rank's rows of ``w`` (and columns of ``x``): the
     partial product in fp32, summed over the group in fp32 and rounded to
@@ -229,6 +283,27 @@ class DataParallelWeights:
             return _Gather.apply(w, dim, self.data_group, self.data_size, self.data_index, self.dp_group)
         return w.view_as(w) if self.dp_size == 1 else _Copy.apply(w, self.dp_group)
 
+    def anchor(self, w: torch.Tensor, dim: Optional[int]) -> Optional[torch.Tensor]:
+        """For a weight used several times a microbatch (zamba2's shared
+        block): a stride-0 stand-in of its gathered shape, through which
+        ``gather(w, dim, anchor)`` at each use sends its gradient, so that
+        the sum over the uses is reduced into the shard once. None where no
+        reduction happens (one data-parallel rank): the uses' gradients
+        then sum into the leaf as the unsharded model's do."""
+        if self.dp_size == 1:
+            return None
+        shape = list(w.shape)
+        if dim is not None and self.data_size > 1:
+            shape[dim] *= self.data_size
+        return _Anchor.apply(w, shape, dim, self.data_size, self.data_index, self.dp_group)
+
+    def gather_at(self, w: torch.Tensor, dim: Optional[int], anchor: Optional[torch.Tensor]) -> torch.Tensor:
+        """``gather(w, dim)`` whose gradient goes to ``anchor`` (``anchor``'s
+        backward reduces it); ``gather`` itself where ``anchor`` is None."""
+        if anchor is None:
+            return self.gather(w, dim)
+        return _GatherAt.apply(w, anchor, dim if self.data_size > 1 else None, self.data_group, self.data_size)
+
 
 class ModelParallel:
     """This rank's place on the "model" axis: ``group``, ``size`` ranks, this
@@ -272,6 +347,13 @@ class ModelParallel:
         whole gradient (a projection computed replicated), and the own block
         is taken as it is."""
         return _Gather.apply(x, dim, self.group, self.size, self.index, self.group if partial_grad else None)
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over "model", forward and backward: each rank's
+        part (a sum of squares over its columns) summed, the whole used by
+        each rank's own columns, so each rank's gradient of it is a part
+        too."""
+        return _AllSum.apply(x, self.group)
 
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max of ``x`` over "model" (no gradient)."""

@@ -13,19 +13,17 @@ process group and no data:
     the error-feedback residual by ``param_specs``; of the step's inputs by
     ``batch_spec``, and of a decode cell's cache by ``cache_pspec``, both
     through ``filter_spec_for_mesh``;
-  * the bytes the port's step holds beyond its state. A cell of the
-    dense, moe and vlm families (``launch/steps.py::SPLIT_FAMILIES``; the
-    split train step, and the sharded prefill and decode steps):
-    ``gathered_params``, the weights gathered at once (the largest layer's
-    compute shards, gathered over "data", with the whole attention
-    projections a ``head_route`` gathers over "model", plus the compute
-    shards of the embedding, ``lm_head`` and the other leaves outside the
-    layers; a leaf the data axes do not split is computed on a view of its
-    shard and adds nothing), and in a train cell ``grad_sum``, the fp32
-    gradient sum of the rank's shards. Any other cell: the whole bf16 model
-    (the other families' sharded step, and their unsharded prefill and
-    decode, gather it onto each device) and, in a train cell, the whole
-    fp32 gradient sum. ``fits``: state + inputs + cache + those within
+  * the bytes the port's step holds beyond its state (every family's
+    train, prefill and decode steps split their compute,
+    ``launch/steps.py``): ``gathered_params``, the weights gathered at once
+    (the largest layer's compute shards, gathered over "data", with the
+    whole projections a head route gathers over "model": an attention's
+    ``head_route``, or a recurrence whose heads the split cuts; plus the
+    compute shards of the embedding, ``lm_head`` and the other leaves
+    outside the layers, zamba2's shared block among them; a leaf the data
+    axes do not split is computed on a view of its shard and adds
+    nothing), and in a train cell ``grad_sum``, the fp32 gradient sum of
+    the rank's shards. ``fits``: state + inputs + cache + those within
     ``--device-bytes`` (default 80e9, one NVIDIA H100 80GB HBM3).
     Activations are not counted: a cell that does not fit here does not
     fit at all, one that fits may still not;
@@ -37,26 +35,21 @@ process group and no data:
     prefill or decode cell: the sharded step's body on rank 0's rows, local
     shards and cache chunk (``steps.prefill_local`` / ``decode_local``);
   * per-device collective bytes of one step (bytes one rank sends, ring
-    algorithms). A split prefill or decode cell, counted on its meta run:
-    ``fsdp_gather`` (each weight's all-gather over "data") and ``model``
-    (over "model": the TP all-reduces, the vocab-parallel embedding and
-    greedy, EP's combine, the projections a head route gathers; a decode
+    algorithms), counted on the meta run of a mesh of more than one
+    device. A prefill or decode cell: ``fsdp_gather`` (each weight's
+    all-gather over "data") and ``model`` (over "model": the TP
+    all-reduces, the vocab-parallel embedding and greedy, EP's combine, the
+    projections a head route gathers, Mamba2's states gathered; a decode
     cell also the new token's K/V row and q of every head gathered, and
-    decode attention's combine over the sequence-sharded cache). A split
-    train cell, counted on the same meta run:
-    ``fsdp_gather`` (each weight's all-gather over "data" in the forward and
-    the remat recompute), ``grad_reduce`` (each weight's gradient summed
-    over the data-parallel ranks in the backward, in bf16, as an all-reduce
-    plus the own block), ``model`` (over "model": the TP all-reduces of
-    each block's attention and FFN, forward, recompute and backward, the
+    decode attention's combine over the sequence-sharded cache). A train
+    cell: ``fsdp_gather`` (each weight's all-gather over "data" in the
+    forward and the remat recompute), ``grad_reduce`` (each weight's
+    gradient summed over the data-parallel ranks in the backward, in bf16,
+    as an all-reduce plus the own block; zamba2's shared block once a
+    microbatch for all its applications), ``model`` (over "model": the TP
+    all-reduces of each block, forward, recompute and backward, the
     vocab-parallel embedding and cross entropy, EP's combine, and the KV or
-    whole projections a head route gathers); times ``accum_steps``. Any
-    other train cell, from the layout: one gather of the params and one
-    ring all-reduce of the fp32 gradient sum over the data-parallel ranks.
-
-The encoder-decoder, RWKV6 and Mamba2 families' prefill and decode cells
-count the port's unsharded step on the rows one device would take
-(their sharded serving is ROADMAP.md §4 item 1).
+    whole projections a head route gathers); times ``accum_steps``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k --mesh single
@@ -80,8 +73,8 @@ from repro_torch.distributed.groups import DataParallelWeights, ModelParallel, S
 from repro_torch.distributed.sharding import (MODEL_AXIS, batch_spec, compute_spec, filter_spec_for_mesh, head_route,
                                               local_bytes, local_shape, param_specs, split_dim)
 from repro_torch.launch.mesh import dp_size, production_mesh_shape
-from repro_torch.launch.steps import (SPLIT_FAMILIES, abstract_train_state, build_prefill_step, build_serve_step,
-                                      build_train_step, decode_local, prefill_local)
+from repro_torch.launch.steps import (abstract_train_state, build_prefill_step, build_serve_step, build_train_step,
+                                      decode_local, prefill_local)
 from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
 from repro_torch.models.common import flat_leaves
@@ -128,7 +121,13 @@ class CountingWeights(DataParallelWeights):
         self.alive = self.peak = 0
 
     def gather(self, w: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        out = super().gather(w, dim)
+        return self._count(super().gather(w, dim), dim)
+
+    def gather_at(self, w: torch.Tensor, dim: Optional[int], anchor: Optional[torch.Tensor]) -> torch.Tensor:
+        out = super().gather_at(w, dim, anchor)  # without an anchor, ``gather`` has counted it
+        return out if anchor is None else self._count(out, dim)
+
+    def _count(self, out: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         if dim is not None and self.data_size > 1:
             n = out.numel() * out.element_size()
             self.alive += n
@@ -140,45 +139,69 @@ class CountingWeights(DataParallelWeights):
         self.alive -= n
 
 
-def is_split(cfg, shape: ShapeConfig) -> bool:
-    """Whether the cell's step computes split (the split train step, or the
-    sharded prefill and decode steps): the dense, moe and vlm families."""
-    return cfg.family in SPLIT_FAMILIES
-
-
-def _attention_route(cfg, specs, mesh: Mapping[str, int]):
-    """Rank 0's ``head_route`` on the mesh (None without a "model" axis of
-    more than one rank)."""
+def _gathered_whole(cfg, specs, mesh: Mapping[str, int]):
+    """The leaves rank 0 gathers whole over "model" in a split step (None
+    without a "model" axis of more than one rank): an attention's head route
+    "replicated" (wq, wk, wv, wo and the biases) or "kv_gather" (wk, wv, bk,
+    bv), and a recurrence's heads cut by the split (rwkv6's time-mix and
+    Mamba2's mixer projections, every head on every rank)."""
     size = mesh.get(MODEL_AXIS, 1)
     if size == 1:
-        return None
+        return set()
     split = lambda name: split_dim(compute_spec(specs[name]), MODEL_AXIS) is not None  # noqa: E731
-    return head_route(cfg.n_heads, cfg.n_kv_heads, size, 0, split("blocks.wq"), split("blocks.wk"))
+    out = set()
+
+    def attention(leaf: str):
+        r = head_route(cfg.n_heads, cfg.n_kv_heads, size, 0, split(f"{leaf}wq"), split(f"{leaf}wk"))
+        names = {"replicated": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+                 "kv_gather": ("wk", "wv", "bk", "bv")}.get(r.route, ())
+        out.update(f"{leaf}{n}" for n in names if f"{leaf}{n}" in specs)
+
+    def recurrence(stack: str, names):
+        H = cfg.ssm.heads
+        if head_route(H, H, size, 0, split(f"{stack}.{names[0]}"), True).route == "replicated":
+            out.update(f"{stack}.{n}" for n in names if split(f"{stack}.{n}"))
+
+    family = cfg.family
+    if family in ("dense", "moe", "vlm"):
+        attention("blocks.")
+    elif family == "encdec":
+        for leaf in ("enc.attn_", "dec.attn_", "dec.cross_"):
+            attention(leaf)
+    elif family == "ssm":
+        recurrence("blocks", ("w_r", "w_k", "w_v", "w_g", "w_lora_b", "w_o"))
+    else:
+        recurrence("mamba", ("w_x", "w_z", "w_out"))
+        if cfg.shared_attn_every:
+            attention("shared_attn.")
+    return out
 
 
 def split_gathered_bytes(cfg, mesh: Mapping[str, int]) -> int:
     """The split step's weights gathered at once on a device: the largest
-    layer's compute shards, with the whole projections its head route
-    gathers over "model" ("replicated": wq, wk, wv, wo and the biases;
-    "kv_gather": wk, wv, bk, bv), plus the compute shards of every leaf
-    outside the layers. A leaf the data axes do not split is computed on a
-    view of its shard: 0 bytes."""
+    layer's compute shards (of the stack whose layer is largest: the
+    encoder's or the decoder's, say), with the whole projections it gathers
+    over "model" (``_gathered_whole``), plus the compute shards of every
+    leaf outside the layers (the embedding, ``lm_head``, zamba2's shared
+    block, whole where it gathers them). A leaf the data axes do not split
+    is computed on a view of its shard: 0 bytes."""
     spec = ModelSpec(cfg)
     specs = param_specs(spec.schema(), mesh)
-    route = _attention_route(cfg, specs, mesh)
-    gathered_whole = {"replicated": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
-                      "kv_gather": ("wk", "wv", "bk", "bv")}.get(route.route if route else None, ())
-    layer = outside = 0
+    whole = _gathered_whole(cfg, specs, mesh)
+    layers_of: Dict[str, int] = {}
+    outside = 0
     for name, leaf in flat_leaves(spec.schema()):
         compute = math.prod(local_shape(leaf.shape, compute_spec(specs[name]), mesh)) * 2
         n = compute if compute > local_bytes(leaf.shape, 2, specs[name], mesh) else 0
-        if leaf.axes[0] != "layers":
+        stacked = leaf.axes[0] == "layers"
+        if name in whole:
+            n += math.prod(leaf.shape[1 if stacked else 0:]) * 2 * (leaf.shape[0] if stacked else 1)
+        if not stacked:
             outside += n
             continue
-        layer += n // leaf.shape[0]
-        if name.split(".", 1)[1] in gathered_whole:
-            layer += math.prod(leaf.shape[1:]) * 2
-    return layer + outside
+        stack = name.split(".", 1)[0]
+        layers_of[stack] = layers_of.get(stack, 0) + n // leaf.shape[0]
+    return max(layers_of.values(), default=0) + outside
 
 
 def cache_bytes(spec: ModelSpec, batch: int, max_len: int, mesh: Mapping[str, int]) -> int:
@@ -190,42 +213,31 @@ def cache_bytes(spec: ModelSpec, batch: int, max_len: int, mesh: Mapping[str, in
                for k, t in spec.cache_specs(batch, max_len).items())
 
 
-def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int]) -> Dict[str, Any]:
-    """The byte columns of one cell on the mesh ``{axis: size}`` (no data)."""
-    cfg, shape = get_config(arch), SHAPES[shape_name]
+def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int], cfg=None) -> Dict[str, Any]:
+    """The byte columns of one cell on the mesh ``{axis: size}`` (no data);
+    ``cfg``: the arch's config cut (its depth, say) in place of the full
+    one."""
+    cfg, shape = cfg or get_config(arch), SHAPES[shape_name]
     spec = ModelSpec(cfg)
     specs = param_specs(spec.schema(), mesh)
     state = abstract_train_state(spec, compress=True)
     per = lambda leaves: sum(local_bytes(t.shape, t.element_size(), specs[n], mesh) for n, t in leaves.items())  # noqa: E731
     opt = state["opt"]
-    params = per(state["params"])
-    whole_params = sum(_nbytes(t) for t in state["params"].values())
-    rec: Dict[str, Any] = {"params": params, "residual": per(state["residual"])}
+    rec: Dict[str, Any] = {"params": per(state["params"]), "residual": per(state["residual"])}
     inputs = spec.input_specs(shape)
     cache = inputs.pop("cache", None)
     rec["inputs"] = sum(_batch_bytes(t, mesh) if t.dim() else _nbytes(t) for t in inputs.values())
-    extra = {"gathered_params": whole_params}
+    extra = {"gathered_params": split_gathered_bytes(cfg, mesh)}
     if shape.kind == "train":
         rec["opt"] = per(opt.mu) + per(opt.nu) + per(opt.master) + _nbytes(opt.step)
-        extra["grad_sum"] = sum(_nbytes(t) for t in opt.master.values())
+        extra["grad_sum"] = per(opt.master)
     else:
         rec["opt"] = 0
-    split = is_split(cfg, shape)
-    if split:
-        extra = {"gathered_params": split_gathered_bytes(cfg, mesh)}
-        if shape.kind == "train":
-            extra["grad_sum"] = per(opt.master)
     if cache is not None:
         rec["cache"] = cache_bytes(spec, shape.global_batch, shape.seq_len, mesh)
     rec["state"] = rec["params"] + rec["opt"]
-    out = {"bytes": rec, "port_step_bytes": extra,
-           "total_bytes": rec["state"] + rec["inputs"] + rec.get("cache", 0) + sum(extra.values())}
-    if not split:  # a split cell's are counted on its meta run (``cell_flops``)
-        dp = dp_size(mesh)
-        out["collective_bytes"] = {"param_gather": whole_params - params}
-        if shape.kind == "train":
-            out["collective_bytes"]["grad_all_reduce"] = int(2 * (dp - 1) / dp * extra["grad_sum"])
-    return out
+    return {"bytes": rec, "port_step_bytes": extra,
+            "total_bytes": rec["state"] + rec["inputs"] + rec.get("cache", 0) + sum(extra.values())}
 
 
 def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") -> Dict[str, Any]:
@@ -235,7 +247,7 @@ def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") 
     data), or a real device, to count the same work computed."""
     spec = ModelSpec(cfg)
     dev = torch.device(device)
-    if is_split(cfg, shape) and math.prod(mesh.values()) > 1:
+    if math.prod(mesh.values()) > 1:
         if dev.type != "meta":
             raise ValueError("a split cell is counted on the meta device only")
         return (_split_flops if shape.kind == "train" else _split_serve_flops)(spec, shape, mesh)
@@ -357,9 +369,8 @@ def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float =
     rec["device"] = DEVICE_NAME if device_bytes == DEVICE_BYTES else "--device-bytes"
     rec["device_bytes"] = device_bytes
     rec["fits"] = rec["total_bytes"] <= device_bytes
-    rec["fits_counts"] = ("state + inputs + cache + gathered params + fp32 gradient sum (a split cell: "
-                          "the largest layer's and the outside leaves' gathered weights; a train cell's gradient "
-                          "shard); not activations")
+    rec["fits_counts"] = ("state + inputs + cache + gathered params (the largest layer's and the outside "
+                          "leaves' gathered weights) + a train cell's fp32 gradient shard; not activations")
     rec.update(cell_flops(get_config(arch), SHAPES[shape_name], mesh))
     rec["count_s"] = round(time.time() - t0, 2)
     return rec

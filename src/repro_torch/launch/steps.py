@@ -7,10 +7,10 @@ families only, as in JAX). The train step is ``python -m
 repro_torch.launch.train``'s; with a mesh it is the sharded step
 (``shard_train_state`` places the state), and ``abstract_train_state`` is
 the dry run's state on the meta device (``launch/dryrun.py``). With a mesh
-the prefill and decode steps of the dense, moe and vlm families serve in
-JAX's layout (params by ``sharding.shard_params``, the decode cache by
-``decode_cache(mesh=)``); the dry run counts their bodies
-(``prefill_local``, ``decode_local``) on meta.
+the prefill and decode steps of every family serve in JAX's layout (params
+by ``sharding.shard_params``, the decode cache by ``decode_cache(mesh=)``);
+the dry run counts their bodies (``prefill_local``, ``decode_local``) on
+meta.
 """
 from __future__ import annotations
 
@@ -31,15 +31,30 @@ from repro_torch.optim.grad_compress import error_feedback_leaf
 from repro_torch.optim.schedules import cosine_schedule
 
 Tensors = Dict[str, torch.Tensor]
-# the families whose sharded step splits its compute over "model" (the
-# others gather the whole model onto each rank)
-SPLIT_FAMILIES = ("dense", "moe", "vlm")
+# the families whose sharded steps split their compute over "model": every
+# family (``models/api.py``)
+SPLIT_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 
 
 def _model_parallel(mesh) -> Optional[ModelParallel]:
     """This rank's place on the mesh's "model" axis (None with one rank)."""
     m = model_size(mesh)
     return ModelParallel(model_group(mesh), m, model_index(mesh)) if m > 1 else None
+
+
+def compute_layout(spec: ModelSpec, mesh, params, cache=None) -> layers.Split:
+    """The split compute layout (``layers.split_compute``) of ``params`` on
+    ``mesh``, read from their placements (and a decode cache's, from
+    ``cache``'s): each leaf's spec for one layer, the FSDP gather over
+    "data" and the "model" axis."""
+    sizes, coord = sharding.mesh_shape(mesh), sharding.mesh_coordinate(mesh)
+    stacked = {name for name, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
+    specs = {n: sharding.spec_of(p) for n, p in params.items()}
+    weights = DataParallelWeights(data_group(mesh), sizes.get("data", 1), coord.get("data", 0), dp_group(mesh),
+                                  dp_size(mesh))
+    caches = None if cache is None else {k: sharding.spec_of(v) for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    return layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, _model_parallel(mesh),
+                        caches)
 
 
 def make_train_state(spec: ModelSpec, generator: torch.Generator, compress: bool = False, device="cuda"):
@@ -100,13 +115,13 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
     (``shard_train_state``, or a restore onto the mesh), and the step is
     JAX's function of the global batch. One step:
 
-    (a) the dense, moe and vlm families (``SPLIT_FAMILIES``) compute in
-        JAX's layout (``layers.split_compute``): the model is given each
-        leaf's local shard, a plain tensor that requires grad, and each
-        weight is gathered over "data" where it is used, inside the remat
-        region (``layers.use_weight``), leaving its "model" shard: Megatron
-        TP for heads, ffn and vocab, EP for the experts. The other families
-        gather each bf16 parameter whole once (over "model" too);
+    (a) computes in JAX's layout (``layers.split_compute``), every family
+        (``SPLIT_FAMILIES``): the model is given each leaf's local shard, a
+        plain tensor that requires grad, and each weight is gathered over
+        "data" where it is used, inside the remat region
+        (``layers.use_weight``), leaving its "model" shard: Megatron TP for
+        heads (attention's and the recurrences'), ffn and vocab, EP for the
+        experts;
     (b) takes this rank's rows of each microbatch by ``batch_spec``: block
         ``dp_index`` of the microbatch's rows (every rank is given the whole
         global batch; ranks with one data coordinate take the same rows);
@@ -115,11 +130,11 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
         microbatch (``layers.data_parallel_rows``);
     (d) sums the gradient over the data-parallel ranks and divides by their
         count (the global-batch mean); each rank keeps its shard, as the
-        leaf's placements say. Split: the gather's backward sums each
-        microbatch's bf16 gradient over the data-parallel ranks into the
-        rank's shard (GSPMD's reduce-scatter, in the param dtype), and the
-        fp32 sum over microbatches is a sum of shards. Whole: the fp32 sum
-        of the whole gradient is all-reduced, then sliced;
+        leaf's placements say: the gather's backward sums each microbatch's
+        bf16 gradient over the data-parallel ranks into the rank's shard
+        (GSPMD's reduce-scatter, in the param dtype; a weight used several
+        times a microbatch, zamba2's shared block, once for the sum of its
+        uses), and the fp32 sum over microbatches is a sum of shards;
     (e) error feedback with the whole leaf's int8 scale (a max over the
         mesh), then AdamW on the local shards in place, clipped by the norm
         that counts each element once (a shard's sum of squares from its
@@ -165,12 +180,6 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
             dist.all_reduce(t, op=op, group=over)
         return t
 
-    split = mesh is not None and spec.cfg.family in SPLIT_FAMILIES
-    if split:
-        stacked = {name for name, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
-        weights = DataParallelWeights(data_group(mesh), sizes.get("data", 1), coord.get("data", 0), group, dp)
-        tp = _model_parallel(mesh)
-
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         B = batch["tokens"].shape[0]
         if B % accum_steps or (B // accum_steps) % dp:
@@ -181,22 +190,13 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
                for k, v in batch.items()}
         params = state["params"]
         specs = {name: sharding.spec_of(p) for name, p in params.items()}
-        if split:
-            local = {name: sharding.local(p).detach().requires_grad_(True) for name, p in params.items()}
-            layout = layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, tp)
-            with layers.data_parallel_rows(rows), layers.split_compute(layout):
-                grads, loss = grads_and_loss(local, own)
-            del local
-            for g in grads.values():  # each a sum of this rank's shards over the data-parallel ranks
-                g.div_(dp)
-        else:
-            full = {name: sharding.gather(p).detach().requires_grad_(True) for name, p in params.items()}
-            with layers.data_parallel_rows(rows):
-                grads, loss = grads_and_loss(full, own)
-            del full
-            for name in sorted(grads):  # leaf by leaf: the whole fp32 sum gives way to this rank's shard
-                g = reduce(grads[name], over=group).div_(dp)
-                grads[name] = g[sharding.shard_slices(g.shape, specs[name], sizes, coord)].contiguous()
+        local = {name: sharding.local(p).detach().requires_grad_(True) for name, p in params.items()}
+        layout = None if mesh is None else compute_layout(spec, mesh, params)
+        with layers.data_parallel_rows(rows), layers.split_compute(layout):
+            grads, loss = grads_and_loss(local, own)
+        del local
+        for g in grads.values():  # each a sum of this rank's shards over the data-parallel ranks
+            g.div_(dp)
         loss = reduce(loss, over=group) / dp
         shards = lambda leaves: {name: sharding.local(t) for name, t in leaves.items()}  # noqa: E731
         if optim.compress_grads:
@@ -236,38 +236,24 @@ def prefill_local(spec: ModelSpec, params: Tensors, tokens: torch.Tensor, fronte
     compute layout is in force (``layers.split_compute``): (the global
     batch's next tokens, the rank's cache)."""
     logits, cache = spec.prefill(params, tokens, frontend)
-    return greedy(logits, _vocab_split(spec), rows), cache
+    return greedy(logits, dense.logits_split(spec.cfg), rows), cache
 
 
 def decode_local(spec: ModelSpec, params: Tensors, cache, tokens: torch.Tensor, pos: int, rows=None):
     """The serve step's body, as ``prefill_local``'s: (next tokens, cache)."""
     logits, cache = spec.decode_step(params, cache, tokens, pos)
-    return greedy(logits, _vocab_split(spec), rows), cache
-
-
-def _vocab_split(spec: ModelSpec):
-    return dense.logits_split(spec.cfg) if spec.cfg.family in SPLIT_FAMILIES else None
-
-
-def _require_split(spec: ModelSpec) -> None:
-    if spec.cfg.family not in SPLIT_FAMILIES:
-        raise ValueError(f"{spec.cfg.name}: sharded prefill and decode serve the {SPLIT_FAMILIES} families; the "
-                         f"{spec.cfg.family} family's is ROADMAP.md §4 item 1 (the next slice)")
+    return greedy(logits, dense.logits_split(spec.cfg), rows), cache
 
 
 class _Serving:
     """A sharded serving step's place on ``mesh``: this rank's rows of the
     global batch (block ``dp_index``, as ``build_train_step`` takes them, or
     every row where the data-parallel ranks do not divide the batch, as
-    ``filter_spec_for_mesh`` replicates it), and the compute layout of its
-    params (and cache), read from their placements."""
+    ``filter_spec_for_mesh`` replicates it)."""
 
-    def __init__(self, spec: ModelSpec, mesh):
-        _require_split(spec)
-        self.mesh = mesh
+    def __init__(self, mesh):
         self.dp, self.index = dp_size(mesh), dp_index(mesh)
         self.group = dp_group(mesh)
-        self.stacked = {name for name, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
 
     def rows(self, batch: int):
         """(this rank's slice of the global rows, the data-parallel ranks
@@ -276,16 +262,6 @@ class _Serving:
             return slice(0, batch), None
         n = batch // self.dp
         return slice(self.index * n, (self.index + 1) * n), DataParallelRows(self.group)
-
-    def layout(self, params, cache=None) -> layers.Split:
-        sizes, coord = sharding.mesh_shape(self.mesh), sharding.mesh_coordinate(self.mesh)
-        specs = {n: sharding.spec_of(p) for n, p in params.items()}
-        weights = DataParallelWeights(data_group(self.mesh), sizes.get("data", 1), coord.get("data", 0), self.group,
-                                      self.dp)
-        caches = None if cache is None else {k: sharding.spec_of(v) for k, v in cache.items()
-                                             if isinstance(v, torch.Tensor)}
-        return layers.Split({n: s[1:] if n in self.stacked else s for n, s in specs.items()}, weights,
-                            _model_parallel(self.mesh), caches)
 
 
 def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max_len: int, device="cuda", mesh=None):
@@ -296,14 +272,15 @@ def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max
     attended, as in JAX). Entries keep the prefill's dtypes, so an fp32
     prefill gives an fp32 cache.
 
-    With ``mesh`` (the dense, moe and vlm families), the cache of the global
-    ``batch`` placed as ``cache_pspec`` says, through
-    ``filter_spec_for_mesh``: k and v DTensors of this rank's rows and its
-    chunk of the ``max_len`` positions, every KV head whole; ``length`` as
-    the prefill's. ``prefill_cache`` is the sharded prefill's (this rank's
-    rows and KV heads): its heads are gathered over "model"
-    (``ModelParallel.gather_heads``) and the rank keeps its chunk of the
-    positions. ``device`` is then the mesh's."""
+    With ``mesh``, the cache of the global ``batch`` placed as
+    ``cache_pspec`` says, through ``filter_spec_for_mesh``: each entry a
+    DTensor of this rank's rows and its block of the dims the spec splits
+    over "model" (a K/V cache's chunk of the ``max_len`` positions, every
+    KV head whole; rwkv6's WKV state's heads), whole on the others;
+    ``length`` as the prefill's. ``prefill_cache`` is the sharded
+    prefill's (this rank's rows; the entries its ``heads`` names hold the
+    rank's heads, gathered over "model" here by
+    ``ModelParallel.gather_heads``). ``device`` is then the mesh's."""
     if mesh is None:
         dc = spec.init_cache(batch, max_len, device=device)
         for key, v in prefill_cache.items():
@@ -313,22 +290,24 @@ def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max
         return dc
     from torch.distributed.tensor import DTensor
 
-    _require_split(spec)
     tp = _model_parallel(mesh)
-    ranges, specs = prefill_cache.get("kv_heads"), spec.cache_pspec()
+    heads, pspecs, shapes = prefill_cache.get("heads", {}), spec.cache_pspec(), spec.cache_specs(batch, max_len)
     out = {"length": prefill_cache["length"]}
-    for key in ("k", "v"):
-        part = prefill_cache[key]  # (L, rows, S, this rank's KV heads, hd)
-        whole = part if ranges is None else tp.gather_heads(part, ranges, 3)
-        L, rows, S, KV, hd = whole.shape
-        cspec, idx = sharding.cache_layout(specs[key], (L, batch, max_len, KV, hd), mesh)
-        if idx[1].stop - idx[1].start != rows:
-            raise ValueError(f"the prefill cache holds {rows} rows; this rank's of {batch} under {cspec} are {idx[1]}")
-        local = torch.zeros((L, rows, idx[2].stop - idx[2].start, KV, hd), dtype=part.dtype,
-                            device=sharding.mesh_device(mesh))
-        first, stop = idx[2].start, min(idx[2].stop, S)
-        if stop > first:
-            local[:, :, :stop - first] = whole[:, :, first:stop]
+    for key, part in prefill_cache.items():
+        if key in ("length", "heads"):
+            continue
+        whole = part if key not in heads else tp.gather_heads(part, heads[key][1], heads[key][0])
+        cspec, idx = sharding.cache_layout(pspecs[key], shapes[key].shape, mesh)
+        if idx[1].stop - idx[1].start != whole.shape[1]:
+            raise ValueError(f"the prefill's {key} holds {whole.shape[1]} rows; this rank's of {batch} under "
+                             f"{cspec} are {idx[1]}")
+        local = torch.zeros([i.stop - i.start for i in idx], dtype=part.dtype, device=sharding.mesh_device(mesh))
+        src, dst = [], []  # the rank's block of each dim that the prefill fills (the rows as they are)
+        for d, i in enumerate(idx):
+            a, b = (0, whole.shape[1]) if d == 1 else (i.start, min(i.stop, whole.shape[d]))
+            src.append(slice(a, max(a, b)))
+            dst.append(slice(0, max(b - a, 0)))
+        local[tuple(dst)] = whole[tuple(src)]
         out[key] = DTensor.from_local(local, mesh, sharding.placements(cspec, mesh), run_check=False)
     return out
 
@@ -337,29 +316,28 @@ def build_prefill_step(spec: ModelSpec, mesh=None) -> Callable:
     """prefill_step(params, tokens, frontend=None) -> (next token (B, 1)
     int32, cache).
 
-    With ``mesh`` (the dense, moe and vlm families; params placed by
-    ``sharding.shard_params``, in any rules: the step reads each leaf's
-    layout from its placements) the step computes in JAX's layout: this
-    rank's rows of ``tokens`` and ``frontend`` (every rank is given the
-    global batch), each weight gathered over "data" where it is used and
-    split over "model" (heads, ffn, vocab; EP for the experts), flash
-    attention on the rank's heads, no grad and no remat, the MoE routing
-    over the global rows. Every rank returns the global batch's next tokens
-    (JAX's value) and its own cache: its rows, its route's KV heads
-    (``decode_cache(mesh=)`` places them). A 1 x 1 mesh is the unsharded
-    step bit for bit. Another family raises: its sharded serving is the next
-    slice (ROADMAP.md §4)."""
+    With ``mesh`` (params placed by ``sharding.shard_params``, in any
+    rules: the step reads each leaf's layout from its placements) the step
+    computes in JAX's layout, every family: this rank's rows of ``tokens``
+    and ``frontend`` (every rank is given the global batch), each weight
+    gathered over "data" where it is used and split over "model" (heads of
+    attention and of the recurrences, ffn, vocab; EP for the experts),
+    flash attention on the rank's heads, no grad and no remat, the MoE
+    routing over the global rows. Every rank returns the global batch's next
+    tokens (JAX's value) and its own cache: its rows, its route's heads
+    where the family computes the entry by heads (``decode_cache(mesh=)``
+    places them). A 1 x 1 mesh is the unsharded step bit for bit."""
     if mesh is None:
         def prefill_step(params, tokens, frontend=None):
             return prefill_local(spec, params, tokens, frontend)
 
         return prefill_step
-    serving = _Serving(spec, mesh)
+    serving = _Serving(mesh)
 
     def sharded_prefill_step(params, tokens, frontend=None):
         own, rows = serving.rows(tokens.shape[0])
         local = {n: sharding.local(p) for n, p in params.items()}
-        with torch.no_grad(), layers.data_parallel_rows(rows), layers.split_compute(serving.layout(params)):
+        with torch.no_grad(), layers.data_parallel_rows(rows), layers.split_compute(compute_layout(spec, mesh, params)):
             return prefill_local(spec, local, tokens[own], None if frontend is None else frontend[own], rows)
 
     return sharded_prefill_step
@@ -370,23 +348,26 @@ def build_serve_step(spec: ModelSpec, mesh=None) -> Callable:
     int32, cache): one greedy decode step against the KV/state cache.
 
     With ``mesh``: the cache is ``decode_cache(mesh=)``'s, updated in place
-    in each rank's shard (the sequence split over "model" by
-    ``cache_pspec``: the new K/V row written by the rank whose chunk holds
-    ``pos``, attention combined over the chunks), ``tokens`` the global
-    batch's, the compute as ``build_prefill_step``'s; every rank returns the
-    global batch's next tokens."""
+    in each rank's shard (a K/V sequence split over "model" by
+    ``cache_pspec``: the new row written by the rank whose chunk holds
+    ``pos``, attention combined over the chunks; rwkv6's WKV state by the
+    rank's heads; the token shifts and Mamba2's conv and SSM states whole,
+    the same on every rank), ``tokens`` the global batch's, the compute as
+    ``build_prefill_step``'s; every rank returns the global batch's next
+    tokens."""
     if mesh is None:
         def serve_step(params, cache, tokens, pos: int):
             return decode_local(spec, params, cache, tokens, pos)
 
         return serve_step
-    serving = _Serving(spec, mesh)
+    serving = _Serving(mesh)
 
     def sharded_serve_step(params, cache, tokens, pos: int):
         own, rows = serving.rows(tokens.shape[0])
         local = {n: sharding.local(p) for n, p in params.items()}
         shard = {k: sharding.local(v) if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
-        with torch.no_grad(), layers.data_parallel_rows(rows), layers.split_compute(serving.layout(params, cache)):
+        with torch.no_grad(), layers.data_parallel_rows(rows), \
+                layers.split_compute(compute_layout(spec, mesh, params, cache)):
             nxt, shard = decode_local(spec, local, shard, tokens[own], pos, rows)
         cache["length"] = shard["length"]
         return nxt, cache

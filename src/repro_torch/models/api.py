@@ -75,7 +75,7 @@ class ModelSpec:
             pred, targets = logits[:, start:start + S], tokens
         else:
             pred, targets = logits[:, :-1], tokens[:, 1:]
-        split = dense.logits_split(cfg) if self.mod is dense else None
+        split = dense.logits_split(cfg)
         if split is None:
             logp = torch.log_softmax(pred.float(), dim=-1)
             ce = -torch.mean(logp.gather(-1, targets.long()[..., None])[..., 0])
@@ -97,14 +97,13 @@ class ModelSpec:
 
     def _assemble_cache(self, collected, S: int) -> Dict[str, Any]:
         """The family's collected state under its cache names (JAX's). In a
-        split step with more than one "model" rank a GQA family's k and v
-        hold this rank's KV heads, and ``kv_heads`` lists each rank's
-        [start, stop) for ``launch/steps.py::decode_cache`` to move them
-        from heads to sequence."""
+        split step with more than one "model" rank the entries the family
+        computes by heads (a GQA family's and an encdec's K/V, the shared
+        block's K/V, rwkv6's WKV state) hold this rank's heads, and
+        ``heads`` maps each to (its heads dim, each rank's [start, stop))
+        for ``launch/steps.py::decode_cache`` to gather them."""
         fam = self.cfg.family
         if fam in ("dense", "moe", "vlm"):
-            if split_model() is not None:
-                return {"k": collected[0], "v": collected[1], "length": S, "kv_heads": dense.kv_head_ranges(self.cfg)}
             names = ("k", "v")
         elif fam == "encdec":
             names = ("k", "v", "ck", "cv")
@@ -112,7 +111,10 @@ class ModelSpec:
             names = ("tm_prev", "cm_prev", "wkv")
         else:  # hybrid; the attention caches only with a shared block
             names = ("conv", "ssm", "attn_k", "attn_v")[:len(collected)]
-        return {**dict(zip(names, collected)), "length": S}
+        cache = {**dict(zip(names, collected)), "length": S}
+        if split_model() is not None:
+            cache["heads"] = self.mod.cache_heads(self.cfg)
+        return cache
 
     def decode_step(self, params, cache, tokens, pos: int):
         return self.mod.decode_step(self.cfg, params, cache, tokens, pos)

@@ -19,7 +19,12 @@ rank's q heads read are gathered from its neighbours where the split cuts
 them, and q heads that do not divide over "model" are computed on every
 rank), flash attention runs on the local heads, and ``wo`` is row-parallel;
 the FFN and the MoE as ``layers``; the embedding, the logits and the loss
-(``ModelSpec.loss``) are vocab-parallel.
+(``ModelSpec.loss``) are vocab-parallel where "model" divides the vocab.
+The attention helpers (``split_attention``, ``split_decode_attention``,
+``split_cross_decode``) take the leaf prefix of their weights, and the
+embedding and logits (``embed_tokens``, ``unembed``) serve every family:
+the encoder-decoder and Zamba2's shared block split their attention the
+same way.
 
 The sharded prefill and decode steps (``launch/steps.py``, under no grad)
 compute in the same layout. Prefill's cache holds this rank's rows and the
@@ -114,46 +119,63 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, aux: bool = False, expert
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"], tp=model_split("blocks.w_gate", -1)), 0.0
 
 
-def _routes(cfg: ModelConfig, ranks=None):
+def _routes(cfg: ModelConfig, ranks=None, leaf: str = "blocks."):
     """The ``head_route`` of each "model" rank of ``ranks`` (default: this
-    rank alone) in a split step."""
+    rank alone) in a split step, for the attention whose leaves are
+    ``<leaf>wq``, ``<leaf>wk``, ..."""
     tp = split_model()
-    q_split, kv_split = model_split("blocks.wq", -1) is not None, model_split("blocks.wk", -1) is not None
+    q_split, kv_split = model_split(f"{leaf}wq", -1) is not None, model_split(f"{leaf}wk", -1) is not None
     return [head_route(cfg.n_heads, cfg.n_kv_heads, tp.size, i, q_split, kv_split)
             for i in (ranks if ranks is not None else [tp.index])]
 
 
-def kv_head_ranges(cfg: ModelConfig):
+def kv_head_ranges(cfg: ModelConfig, leaf: str = "blocks."):
     """Each "model" rank's KV heads [start, stop) in a split step, in rank
     order: the heads its K/V projections compute."""
-    return tuple(r.kv for r in _routes(cfg, range(split_model().size)))
+    return tuple(r.kv for r in _routes(cfg, range(split_model().size), leaf))
 
 
-def _split_qkv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: torch.Tensor):
-    """The attention projections of a split step: (q of the route's q
-    heads, k and v of its KV heads (``route.kv``), the route, the ``wo`` it
-    computes with: the rank's rows, or the whole where it is replicated)."""
+def cache_heads(cfg: ModelConfig):
+    """A split prefill cache's entries that hold this rank's KV heads:
+    {name: (heads dim, each rank's [start, stop))}."""
+    ranges = kv_head_ranges(cfg)
+    return {"k": (3, ranges), "v": (3, ranges)}
+
+
+def split_qkv(cfg: ModelConfig, ap: AttnParams, h: torch.Tensor, positions, leaf: str = "blocks.",
+              kv_in: Optional[torch.Tensor] = None):
+    """The attention projections of a split step (leaves ``<leaf>wq``, ...;
+    ``ap`` the layer's weights): (q of the route's q heads, k and v of its
+    KV heads (``route.kv``), the route, the ``wo`` it computes with: the
+    rank's rows, or the whole where it is replicated). ``kv_in``: the input
+    of k and v where it is not ``h`` (cross-attention's encoder output)."""
     tp = split_model()
     hd = cfg.resolved_head_dim
-    route = _routes(cfg)[0]
-    ap = _attn_params(cfg, p)
+    route = _routes(cfg, leaf=leaf)[0]
+    src = h if kv_in is None else kv_in
     if route.route == "replicated":  # every rank computes every head: the whole projections, gathered
         def whole(name, w):
             dim = 0 if name == "wo" else -1  # wo's heads are its rows
-            split = w is not None and model_split(f"blocks.{name}", dim) is not None
+            split = w is not None and model_split(f"{leaf}{name}", dim) is not None
             return tp.gather(w, dim, partial_grad=False) if split else w
 
         ap = AttnParams(**{n: whole(n, getattr(ap, n)) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
                         q_norm=ap.q_norm, k_norm=ap.k_norm)
-        return (*project_qkv(cfg, ap, h, positions), route, ap.wo)
+        if kv_in is None:
+            return (*project_qkv(cfg, ap, h, positions), route, ap.wo)
+        return (*qkv_epilogue(cfg, ap, h @ ap.wq, src @ ap.wk, src @ ap.wv, positions), route, ap.wo)
     kv = {"wk": ap.wk, "wv": ap.wv, "bk": ap.bk, "bv": ap.bv}
     if route.route == "kv_gather":  # the whole KV projections; this rank's q heads read heads route.kv
         cols = slice(route.kv[0] * hd, route.kv[1] * hd)
-        kv = {name: (tp.gather(w, -1, partial_grad=True) if model_split(f"blocks.{name}", -1) is not None
+        kv = {name: (tp.gather(w, -1, partial_grad=True) if model_split(f"{leaf}{name}", -1) is not None
                      else tp.copy(w))[..., cols] for name, w in kv.items() if w is not None}
     norm = {"q_norm": tp.copy(ap.q_norm), "k_norm": tp.copy(ap.k_norm)} if ap.q_norm is not None else {}
     ap = AttnParams(wq=ap.wq, wo=ap.wo, bq=ap.bq, **{n: kv.get(n) for n in ("wk", "wv", "bk", "bv")}, **norm)
-    return (*qkv_epilogue(cfg, ap, *tp.column_parallel(h, ap.wq, ap.wk, ap.wv), positions), route, ap.wo)
+    if kv_in is None:
+        q, k, v = tp.column_parallel(h, ap.wq, ap.wk, ap.wv)
+    else:
+        (q,), (k, v) = tp.column_parallel(h, ap.wq), tp.column_parallel(src, ap.wk, ap.wv)
+    return (*qkv_epilogue(cfg, ap, q, k, v, positions), route, ap.wo)
 
 
 def _split_out(route, o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -163,15 +185,70 @@ def _split_out(route, o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o @ wo if route.route == "replicated" else split_model().row_parallel(o, wo)
 
 
-def _split_attention(cfg: ModelConfig, p: Params, h: torch.Tensor, positions: torch.Tensor):
-    """Attention in a split step: (the layer's attention output (B, S, d),
-    k, v of the KV heads this rank computed, ``route.kv``)."""
-    q, k, v, route, wo = _split_qkv(cfg, p, h, positions)
+def split_attention(cfg: ModelConfig, ap: AttnParams, h: torch.Tensor, positions, leaf: str = "blocks.",
+                    causal: bool = True, kv_in: Optional[torch.Tensor] = None):
+    """Attention in a split step, flash on the route's heads: (the layer's
+    attention output (B, S, d), k, v of the KV heads this rank computed,
+    ``route.kv``)."""
+    q, k, v, route, wo = split_qkv(cfg, ap, h, positions, leaf, kv_in)
     kq, vq = k, v
     if route.kv_of_q is not None:  # local q heads that are not whole GQA groups: one KV head per q head
         index = torch.tensor(route.kv_of_q, device=k.device)
         kq, vq = k.index_select(2, index), v.index_select(2, index)
-    return _split_out(route, flash_attention(q, kq, vq, causal=True), wo), k, v
+    return _split_out(route, flash_attention(q, kq, vq, causal=causal), wo), k, v
+
+
+def _split_decode_attend(route, q: torch.Tensor, k_cache, v_cache, length: int, seq, wo) -> torch.Tensor:
+    """q of the route's heads (B, 1, heads, hd) over a decode cache (every
+    KV head; the sequence this rank's chunk where ``seq`` splits it, the
+    whole else) of ``length`` valid rows, through ``wo``: q of every head
+    gathered, attention combined over the chunks, the rank's heads out."""
+    tp = split_model()
+    if route.route != "replicated":
+        q = tp.gather(q, 2, partial_grad=False)  # every q head (the ranks' heads are consecutive)
+    if seq is None:
+        o = decode_attention(q, k_cache, v_cache, length)
+    else:
+        o = sharded_decode_attention(q, k_cache, v_cache, length, seq)
+    if route.route != "replicated":
+        o = o[:, :, route.q[0]:route.q[1]]
+    return _split_out(route, o, wo)
+
+
+def split_decode_attention(cfg: ModelConfig, ap: AttnParams, h: torch.Tensor, positions, k_cache, v_cache,
+                           pos: int, seq, leaf: str = "blocks.") -> torch.Tensor:
+    """Self-attention of a split decode step over a K/V cache of every KV
+    head (``seq``: the "model" axis its sequence is split over, or None):
+    the projections by the head route; the new token's K/V of every KV head
+    (``gather_heads``) written at ``pos`` by the rank whose chunk holds it
+    (by every rank where the cache is whole); the attention output."""
+    tp = split_model()
+    q, k, v, route, wo = split_qkv(cfg, ap, h, positions, leaf)
+    ranges = kv_head_ranges(cfg, leaf)
+    k, v = tp.gather_heads(k, ranges, 2), tp.gather_heads(v, ranges, 2)
+    chunk = k_cache.shape[1]
+    if seq is None or pos // chunk == seq.index:
+        row = pos if seq is None else pos % chunk
+        k_cache[:, row], v_cache[:, row] = k[:, 0], v[:, 0]
+    return _split_decode_attend(route, q, k_cache, v_cache, pos + 1, seq, wo)
+
+
+def split_cross_decode(cfg: ModelConfig, ap: AttnParams, h: torch.Tensor, k_cache, v_cache, seq,
+                       leaf: str) -> torch.Tensor:
+    """Cross-attention of a split decode step: q by the head route (no
+    bias, no RoPE), every row of the cross cache attended (its length is
+    the whole cache's: padded rows count, as in JAX)."""
+    tp = split_model()
+    route = _routes(cfg, leaf=leaf)[0]
+    hd = cfg.resolved_head_dim
+    if route.route == "replicated":
+        wq = tp.gather(ap.wq, -1, partial_grad=False) if model_split(f"{leaf}wq", -1) is not None else ap.wq
+        wo = tp.gather(ap.wo, 0, partial_grad=False) if model_split(f"{leaf}wo", 0) is not None else ap.wo
+        q = h @ wq
+    else:
+        (q,), wo = tp.column_parallel(h, ap.wq), ap.wo
+    length = k_cache.shape[1] * (1 if seq is None else seq.size)
+    return _split_decode_attend(route, q.reshape(*q.shape[:2], -1, hd), k_cache, v_cache, length, seq, wo)
 
 
 def _block(
@@ -185,29 +262,34 @@ def _block(
         o = flash_attention(q, k, v, causal=True)
         x = x + o.reshape(*o.shape[:2], -1) @ p["wo"]
     else:
-        o, k, v = _split_attention(cfg, p, h, positions)
+        o, k, v = split_attention(cfg, _attn_params(cfg, p), h, positions)
         x = x + o
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     f, aux_loss = _ffn(cfg, p, h, aux)
     return x + f, aux_loss, k, v
 
 
-def embed_inputs(
-    cfg: ModelConfig, params: Params, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Token embeddings (B, S, d); a vlm's frontend embeddings (B, Sf, d)
-    are projected and prepended. In a split step with the vocab split over
-    "model", each rank looks up the tokens of its vocab range, writes zero
-    for the rest, and the rows are summed over "model"."""
+def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings (B, S, d) of ``params["embed"]`` (every family's).
+    In a split step with the vocab split over "model", each rank looks up
+    the tokens of its vocab range, writes zero for the rest, and the rows
+    are summed over "model"."""
     embed = use_weight(params["embed"], "embed")
     tp = model_split("embed", 0)
     if tp is None:
-        x = embed[tokens]
-    else:
-        local = tokens.long() - tp.index * embed.shape[0]
-        inside = (local >= 0) & (local < embed.shape[0])
-        x = embed[local.clamp(0, embed.shape[0] - 1)]
-        x = tp.reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
+        return embed[tokens]
+    local = tokens.long() - tp.index * embed.shape[0]
+    inside = (local >= 0) & (local < embed.shape[0])
+    x = embed[local.clamp(0, embed.shape[0] - 1)]
+    return tp.reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
+
+
+def embed_inputs(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Token embeddings (B, S, d) (``embed_tokens``); a vlm's frontend
+    embeddings (B, Sf, d) are projected and prepended."""
+    x = embed_tokens(params, tokens)
     if cfg.frontend is not None and frontend is not None:
         fe = frontend.to(x.dtype) @ use_weight(params["frontend_proj"], "frontend_proj")
         x = torch.cat([fe, x], dim=1)
@@ -223,8 +305,9 @@ def logits_split(cfg: ModelConfig):
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Logits (B, S, V); in a split step with the vocab split over "model",
-    this rank's columns (``logits_split``)."""
+    """Logits (B, S, V) of the final norm and the tied embedding or
+    ``lm_head`` (every family's); in a split step with the vocab split over
+    "model", this rank's columns (``logits_split``)."""
     x = rmsnorm(x, use_weight(params["final_norm"], "final_norm"), cfg.norm_eps)
     w = use_weight(params["embed"], "embed").T if cfg.tie_embeddings else use_weight(params["lm_head"], "lm_head")
     return x @ w if logits_split(cfg) is None else split_model().column_parallel(x, w)[0]
@@ -337,29 +420,11 @@ def _decode_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, cache, layer: in
 
 def _split_decode_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, cache, layer: int, pos: int,
                         positions: torch.Tensor) -> torch.Tensor:
-    """One layer of a split decode step: the projections by the head route;
-    the new token's K/V of every KV head (``gather_heads``) written at
-    ``pos`` by the rank whose chunk holds it (by every rank where the cache
-    is whole); q of every head; attention over the sharded cache (or the
-    whole); the rank's heads into ``wo``; the FFN split as in training."""
-    tp, seq = split_model(), cache_split("k", 2)
+    """One layer of a split decode step: attention by
+    ``split_decode_attention`` over the sharded cache (or the whole); the
+    FFN split as in training."""
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v, route, wo = _split_qkv(cfg, p, h, positions)
-    ranges = kv_head_ranges(cfg)
-    k, v = tp.gather_heads(k, ranges, 2), tp.gather_heads(v, ranges, 2)
-    if route.route != "replicated":
-        q = tp.gather(q, 2, partial_grad=False)  # every q head (the ranks' heads are consecutive)
-    k_cache, v_cache = cache["k"][layer], cache["v"][layer]
-    if seq is None:
-        k_cache[:, pos], v_cache[:, pos] = k[:, 0], v[:, 0]
-        o = decode_attention(q, k_cache, v_cache, pos + 1)
-    else:
-        chunk = k_cache.shape[1]
-        if pos // chunk == seq.index:
-            k_cache[:, pos % chunk], v_cache[:, pos % chunk] = k[:, 0], v[:, 0]
-        o = sharded_decode_attention(q, k_cache, v_cache, pos + 1, seq)
-    if route.route != "replicated":
-        o = o[:, :, route.q[0]:route.q[1]]
-    x = x + _split_out(route, o, wo)
+    x = x + split_decode_attention(cfg, _attn_params(cfg, p), h, positions, cache["k"][layer], cache["v"][layer],
+                                   pos, cache_split("k", 2))
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     return x + _ffn(cfg, p, h)[0]

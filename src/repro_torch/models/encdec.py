@@ -18,8 +18,10 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.distributed.sharding import P
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import dense
 from repro_torch.models.common import Leaf, Params, layer_stack, maybe_remat, stacked
-from repro_torch.models.layers import AttnParams, decode_attention, gelu_mlp, project_qkv, rmsnorm
+from repro_torch.models.layers import (AttnParams, cache_split, decode_attention, gelu_mlp, model_split, project_qkv,
+                                       rmsnorm, split_model, use_weight, use_weights)
 
 
 def _attn_leaves(cfg: ModelConfig, L: int, prefix: str) -> Dict[str, Leaf]:
@@ -83,23 +85,43 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:2], -1)
 
 
+def _attention(cfg: ModelConfig, p: Params, h: torch.Tensor, prefix: str, leaf: str, causal: bool,
+               kv_in=None):
+    """Attention of the layer's ``<prefix>`` weights (self-attention, or
+    cross-attention to ``kv_in``): (output (B, S, d), k, v)."""
+    ap = _aview(p, prefix)
+    if split_model() is not None:
+        return dense.split_attention(cfg, ap, h, None, leaf, causal=causal, kv_in=kv_in)
+    if kv_in is None:
+        q, k, v = project_qkv(cfg, ap, h, None, rope=False)
+    else:
+        q = (h @ ap.wq).reshape(*h.shape[:2], cfg.n_heads, cfg.resolved_head_dim)
+        k, v = _cross_kv(cfg, p, kv_in)
+    return _merge_heads(flash_attention(q, k, v, causal=causal)) @ ap.wo, k, v
+
+
+def _mlp(p: Params, h: torch.Tensor, stack: str) -> torch.Tensor:
+    return gelu_mlp(h, p["w_in"], p["w_out"], tp=model_split(f"{stack}.w_in", -1))
+
+
 def _enc_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """One encoder layer (full attention)."""
+    p = use_weights(p, "enc")
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
-    x = x + _merge_heads(flash_attention(q, k, v, causal=False)) @ p["attn_wo"]
+    x = x + _attention(cfg, p, h, "attn_", "enc.attn_", causal=False)[0]
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + gelu_mlp(h, p["w_in"], p["w_out"])
+    return x + _mlp(p, h, "enc")
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *, remat: bool = True) -> torch.Tensor:
     """frames: (B, S_enc, d) stub frontend embeddings -> (B, S_enc, d). The
     frames are cast to the weights' dtype (bf16, as JAX casts them)."""
-    x = frames.to(params["frontend_proj"].dtype) @ params["frontend_proj"]
+    proj = use_weight(params["frontend_proj"], "frontend_proj")
+    x = frames.to(proj.dtype) @ proj
     x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(x.dtype)
     for p in layer_stack(params, "enc"):
         x = maybe_remat(_enc_block, remat, cfg, p, x)
-    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    return rmsnorm(x, use_weight(params["enc_norm"], "enc_norm"), cfg.norm_eps)
 
 
 def _cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
@@ -111,16 +133,17 @@ def _cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
 
 
 def _dec_block(cfg: ModelConfig, p: Params, x: torch.Tensor, enc_out: torch.Tensor):
-    """One decoder layer over the whole sequence. Returns (x, (k, v, ck, cv))."""
+    """One decoder layer over the whole sequence. Returns (x, (k, v, ck, cv))
+    (in a split step the rank's KV heads)."""
+    p = use_weights(p, "dec")
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
-    x = x + _merge_heads(flash_attention(q, k, v, causal=True)) @ p["attn_wo"]
+    o, k, v = _attention(cfg, p, h, "attn_", "dec.attn_", causal=True)
+    x = x + o
     h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
-    cq = (h @ p["cross_wq"]).reshape(*h.shape[:2], cfg.n_heads, cfg.resolved_head_dim)
-    ck, cv = _cross_kv(cfg, p, enc_out)
-    x = x + _merge_heads(flash_attention(cq, ck, cv, causal=False)) @ p["cross_wo"]
+    o, ck, cv = _attention(cfg, p, h, "cross_", "dec.cross_", causal=False, kv_in=enc_out)
+    x = x + o
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + gelu_mlp(h, p["w_in"], p["w_out"]), (k, v, ck, cv)
+    return x + _mlp(p, h, "dec"), (k, v, ck, cv)
 
 
 def forward(
@@ -138,7 +161,7 @@ def forward(
     each encoder and decoder layer is recomputed in the backward (JAX's
     ``jax.checkpoint`` of both scan bodies)."""
     enc_out = encode(cfg, params, frontend, remat=remat)
-    x = params["embed"][tokens]
+    x = dense.embed_tokens(params, tokens)
     x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(x.dtype)
     kvs = []
     for p in layer_stack(params, "dec"):
@@ -147,9 +170,16 @@ def forward(
             kvs.append(kv)
     if unembed_last_only:
         x = x[:, -1:]
-    logits = rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    logits = dense.unembed(cfg, params, x)
     collected = tuple(torch.stack(t) for t in zip(*kvs)) if collect_kv else None
     return logits, 0.0, collected
+
+
+def cache_heads(cfg: ModelConfig):
+    """A split prefill cache's entries that hold this rank's KV heads (self
+    and cross): {name: (heads dim, each rank's [start, stop))}."""
+    self_kv, cross_kv = dense.kv_head_ranges(cfg, "dec.attn_"), dense.kv_head_ranges(cfg, "dec.cross_")
+    return {"k": (3, self_kv), "v": (3, self_kv), "ck": (3, cross_kv), "cv": (3, cross_kv)}
 
 
 # ---------------------------------------------------------------------------
@@ -181,24 +211,34 @@ def cache_pspec():
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any], tokens: torch.Tensor, pos: int):
     """One decoder step against the cached self and cross K/V. Returns
-    (logits (B, V), cache); the self cache is written IN PLACE at ``pos``."""
-    x = params["embed"][tokens]  # (B, 1, d)
+    (logits (B, V), cache); the self cache is written IN PLACE at ``pos``.
+    In a split step the cache is this rank's (its rows, its chunk of each
+    sequence where ``cache_pspec`` splits it)."""
+    x = dense.embed_tokens(params, tokens)  # (B, 1, d)
     B = x.shape[0]
     x = x + sinusoid_at(pos, x.shape[-1], device=x.device).to(x.dtype)
+    split = split_model() is not None
     for layer, p in enumerate(layer_stack(params, "dec")):
+        p = use_weights(p, "dec")
+        k_c, v_c, ck, cv = (cache[key][layer] for key in ("k", "v", "ck", "cv"))
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
-        cache["k"][layer, :, pos] = k[:, 0]
-        cache["v"][layer, :, pos] = v[:, 0]
-        o = decode_attention(q, cache["k"][layer], cache["v"][layer], pos + 1)
-        x = x + o.reshape(B, 1, -1) @ p["attn_wo"]
-        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
-        cq = (h @ p["cross_wq"]).reshape(B, 1, cfg.n_heads, cfg.resolved_head_dim)
-        ck, cv = cache["ck"][layer], cache["cv"][layer]
-        co = decode_attention(cq, ck, cv, ck.shape[1])
-        x = x + co.reshape(B, 1, -1) @ p["cross_wo"]
+        if split:
+            x = x + dense.split_decode_attention(cfg, _aview(p, "attn_"), h, None, k_c, v_c, pos, cache_split("k", 2),
+                                                 "dec.attn_")
+            h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+            x = x + dense.split_cross_decode(cfg, _aview(p, "cross_"), h, ck, cv, cache_split("ck", 2), "dec.cross_")
+        else:
+            q, k, v = project_qkv(cfg, _aview(p, "attn_"), h, None, rope=False)
+            k_c[:, pos] = k[:, 0]
+            v_c[:, pos] = v[:, 0]
+            o = decode_attention(q, k_c, v_c, pos + 1)
+            x = x + o.reshape(B, 1, -1) @ p["attn_wo"]
+            h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+            cq = (h @ p["cross_wq"]).reshape(B, 1, cfg.n_heads, cfg.resolved_head_dim)
+            co = decode_attention(cq, ck, cv, ck.shape[1])
+            x = x + co.reshape(B, 1, -1) @ p["cross_wo"]
         h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + gelu_mlp(h, p["w_in"], p["w_out"])
-    logits = (rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"])[:, 0]
+        x = x + _mlp(p, h, "dec")
+    logits = dense.unembed(cfg, params, x)[:, 0]
     cache["length"] = pos + 1
     return logits, cache

@@ -75,7 +75,7 @@ _SPLIT: Optional[Split] = None
 
 @contextlib.contextmanager
 def split_compute(split: Optional[Split]):
-    """Within the block, the dense, moe and vlm layers compute in ``split``'s
+    """Within the block, every family's layers compute in ``split``'s
     layout (None: unsharded)."""
     global _SPLIT
     before, _SPLIT = _SPLIT, split
@@ -92,9 +92,24 @@ def use_weight(w: torch.Tensor, name: str) -> torch.Tensor:
     return w if _SPLIT is None else _SPLIT.weights.gather(w, _SPLIT.data_dim[name])
 
 
-def use_weights(p, stack: str):
-    """``use_weight`` of each of one layer's leaves of ``<stack>.*``."""
-    return p if _SPLIT is None else {k: use_weight(w, f"{stack}.{k}") for k, w in p.items()}
+def use_weights(p, stack: str, anchors=None):
+    """``use_weight`` of each of one layer's leaves of ``<stack>.*``; with
+    ``anchors`` (``weight_anchors``) each gradient goes to its anchor."""
+    if _SPLIT is None:
+        return p
+    if anchors is None:
+        return {k: use_weight(w, f"{stack}.{k}") for k, w in p.items()}
+    return {k: _SPLIT.weights.gather_at(w, _SPLIT.data_dim[f"{stack}.{k}"], anchors[k]) for k, w in p.items()}
+
+
+def weight_anchors(p, stack: str):
+    """For leaves ``<stack>.*`` used several times a microbatch (zamba2's
+    shared block): one ``DataParallelWeights.anchor`` each, so that each
+    leaf's gradient, summed over the uses, is reduced into its shard once.
+    None outside a split step or without a reduction."""
+    if _SPLIT is None or _SPLIT.weights.dp_size == 1:
+        return None
+    return {k: _SPLIT.weights.anchor(w, _SPLIT.data_dim[f"{stack}.{k}"]) for k, w in p.items()}
 
 
 def model_split(name: str, dim: int) -> Optional[ModelParallel]:
@@ -195,14 +210,13 @@ def qkv_epilogue(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What ``project_qkv`` does after the three matmuls: bias, qk-norm and
     RoPE (none where ``positions`` is None). q: (B, S, H*hd), k/v:
-    (B, S, KV*hd) -> (B, S, heads, hd) each."""
-    B, S, _ = q.shape
+    (B, S_kv, KV*hd) -> (B, S or S_kv, heads, hd) each."""
     hd = cfg.resolved_head_dim
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, -1, hd)  # cfg.n_heads, or a split step's local heads
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
+    q = q.reshape(*q.shape[:2], -1, hd)  # cfg.n_heads, or a split step's local heads
+    k = k.reshape(*k.shape[:2], -1, hd)  # k and v may be longer (cross-attention)
+    v = v.reshape(*v.shape[:2], -1, hd)
     if p.q_norm is not None:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)

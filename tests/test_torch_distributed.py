@@ -17,12 +17,12 @@ a timeout of ``torch_step_rules.RUN_TIMEOUT`` seconds.
   ties), with (token, choice) pairs dropped by the global capacity, the
   same ones as the unsharded step's;
 - the same on a (2, 2, 2) pod x data x model mesh, with compression;
-- reduced whisper-base on (2, 2), with compression: the families whose
-  sharded step gathers the whole model (encdec, rwkv6, mamba2; not
-  ``launch/steps.py::SPLIT_FAMILIES``), each step against JAX's step;
-- a 1 x 1 mesh equals the unsharded step bit for bit (dense, moe, vlm,
-  encdec, rwkv6), and so do the sharded prefill and decode steps (dense,
-  moe, vlm; the other families' raise);
+- reduced whisper-base on (2, 2), with compression, through the split
+  step (until the encdec, rwkv6 and mamba2 families split their compute,
+  this case held the step that gathered the whole model), each step
+  against JAX's step;
+- a 1 x 1 mesh equals the unsharded step bit for bit, and so do the
+  sharded prefill and decode steps (one arch of each family);
 - elastic restore: saved on (2, 4), restored on (1, 1) and on (4, 2), the
   leaves equal, the next step equal.
 """
@@ -242,12 +242,13 @@ def test_olmoe_on_3x2_matches_jax_with_global_capacity(tmp_path):
 
 
 def test_whole_gather_family_on_2x2_matches_jax(tmp_path):
-    """Reduced whisper-base (encdec, with its frame rows) on a (2, 2) mesh
-    through the sharded step that gathers the whole bf16 model, all-reduces
-    the fp32 gradient sum over "data" and keeps the rank's shard (the
-    encdec, rwkv6 and mamba2 families), with int8 error feedback: two
-    steps, each against JAX's step from the same state (mu by the loss
-    tests' gradient tolerance of each leaf)."""
+    """Reduced whisper-base (encdec, with its frame rows) on a (2, 2) mesh,
+    with int8 error feedback: two steps, each against JAX's step from the
+    same state (mu by the loss tests' gradient tolerance of each leaf). The
+    encdec family once took a sharded step that gathered the whole bf16
+    model; it now takes the split step (dense's TP for the encoder, the
+    decoder and cross-attention; tests/test_torch_split_families.py holds
+    every family's), which this case holds to JAX as it held that one."""
     arch = "whisper-base"
     extra = with_frontend(tmp_path, get_reduced(arch), QWEN_TOKENS)
     pair, out, states = run_steps(tmp_path, arch, [2, 2], True, QWEN_TOKENS, steps=2, **extra)
@@ -259,16 +260,15 @@ def test_whole_gather_family_on_2x2_matches_jax(tmp_path):
                         quant_steps(out, k, states[k]["params"]), mu_tol=mu_tol)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b", "whisper-base", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b", "whisper-base", "rwkv6-3b",
+                                  "zamba2-7b"])
 def test_1x1_mesh_is_the_unsharded_step_bit_for_bit(tmp_path, arch):
-    """One arch of each family the split step serves (dense, moe, vlm with
-    its frontend rows), and of two families whose sharded step gathers the
-    whole model (encdec with its frame rows, rwkv6): on 1 x 1 every gather
-    is a view and every op the unsharded one. The trained params then serve
-    a prompt (4 rows of 32 tokens, 4 new) through the sharded prefill and
-    decode steps and through the unsharded ones: tokens, logits and cache
-    bit-equal for the dense, moe and vlm families; the sharded steps of the
-    other families raise, naming ROADMAP.md §4."""
+    """One arch of each family (dense, moe, vlm with its frontend rows,
+    encdec with its frame rows, rwkv6, zamba2): on 1 x 1 every gather is a
+    view and every op the unsharded one. The trained params then serve a
+    prompt (4 rows of 32 tokens, 4 new) through the sharded prefill and
+    decode steps and through the unsharded ones: tokens, logits and every
+    cache entry bit-equal."""
     pair, _ = start(tmp_path, arch, True, QWEN_TOKENS)
     extra = with_frontend(tmp_path, pair.spec.cfg, QWEN_TOKENS)
     out = run_ranks(tmp_path, "run", 1, arch=arch, mesh=[1, 1], axes=["data", "model"], accum=2, lr=LR,
@@ -276,10 +276,7 @@ def test_1x1_mesh_is_the_unsharded_step_bit_for_bit(tmp_path, arch):
                     batch=str(tmp_path / "batch.npy"), ckpt_out=str(tmp_path / "ckpt_out"), save_after=[2],
                     unsharded=True, serve_check=True, **extra)
     assert out["metrics"] == out["unsharded"]
-    if pair.spec.cfg.family in ("dense", "moe", "vlm"):
-        assert out["serve_equal"] is True
-    else:
-        assert "ROADMAP.md §4" in out["serve_raises"]
+    assert out["serve_equal"] is True
     assert_states_equal(restored(tmp_path / "ckpt_out", arch, True, 2),
                         restored(tmp_path / "ckpt_out_unsharded", arch, True, 2))
 

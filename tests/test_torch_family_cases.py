@@ -93,6 +93,11 @@ def make_pair(arch: str, seed: int = 1, **replace) -> Pair:
     ``replace`` on both sides) with the same weights on both sides."""
     jcfg = dataclasses.replace(jax_get_reduced(arch), **replace)
     cfg = dataclasses.replace(configs.get_reduced(arch), **replace)
+    return pair_of(jcfg, cfg, seed)
+
+
+def pair_of(jcfg, cfg, seed: int = 1) -> Pair:
+    """``make_pair``'s weights for a JAX config and the port's same config."""
     jspec, spec = JaxSpec(jcfg), ModelSpec(cfg)
     tree = jax.tree_util.tree_map(np.asarray, jspec.init(jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)

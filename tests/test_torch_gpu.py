@@ -565,6 +565,37 @@ def test_flash_attention_backward(cuda, hd, g, S, S_kv, causal, monkeypatch):
         assert float((a.float() - b.float()).abs().max()) <= 1e-2 * float(b.float().abs().max())
 
 
+# a "model" rank's heads (of 2) at the families' prefill and train shapes:
+# whisper-base's encoder, self- and cross-attention (4 heads of 64), and
+# zamba2-7b's shared block (16 heads of 112); (B, S, S_kv, H, KV, hd, causal)
+SPLIT_FAMILY_FLASH_SHAPES = [
+    (4, 103, 103, 4, 4, 64, False), (4, 381, 381, 4, 4, 64, True), (4, 381, 103, 4, 4, 64, False),
+    (4, 381, 381, 16, 16, 112, True), (2, 1024, 256, 4, 4, 64, False), (1, 1100, 1100, 16, 16, 112, True),
+]
+
+
+@pytest.mark.parametrize("B,S,S_kv,H,KV,hd,causal", SPLIT_FAMILY_FLASH_SHAPES)
+def test_flash_attention_at_split_family_shapes(cuda, B, S, S_kv, H, KV, hd, causal):
+    """Flash attention at a split rank's heads of whisper-base and
+    zamba2-7b: the forward on the tensor-core route within 3e-2 of the
+    plain version, its backward (``flash_attention_bwd``) within 3e-2 and
+    1e-2 of each gradient's max |value| of the plain version's autograd."""
+    rng = np.random.default_rng(B + S + S_kv + H + hd)
+    q = _rand(rng, (B, S, H, hd), "bfloat16", cuda).requires_grad_(True)
+    k, v = (_rand(rng, (B, S_kv, KV, hd), "bfloat16", cuda).requires_grad_(True) for _ in range(2))
+    dout = _rand(rng, (B, S, H, hd), "bfloat16", cuda)
+    reset_launch_counts()
+    out = flash_attention(q, k, v, causal=causal)
+    assert route_counts() == {"tensor_core": 1, "cuda_core": 0}
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    _close(out, ref, 3e-2)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    for a, b in zip(got, want):
+        _close(a, b, 3e-2)
+        assert float((a.float() - b.float()).abs().max()) <= 1e-2 * float(b.float().abs().max())
+
+
 def _train_pair(arch, monkeypatch):
     """Reduced ``arch``: the same random weights on the CPU and the card,
     leaves requiring grad, and one seeded batch (2 x 32) on each. A
@@ -653,14 +684,14 @@ def test_train_launcher_crash_and_resume_on_the_card(cuda, tmp_path):
     launcher_drill(tmp_path, "cuda", extra=["--compress"])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "whisper-base", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "whisper-base", "rwkv6-3b", "zamba2-7b"])
 def test_sharded_step_on_one_rank_nccl(cuda, arch):
-    """The sharded train step on a 1 x 1 mesh over a one-rank NCCL group
+    """The split train step on a 1 x 1 mesh over a one-rank NCCL group
     (its gathers and reductions are copies; olmoe's MoE gathers its routing
     over the group) equals the unsharded step on the card bit for bit: two
     steps with int8 error feedback, metrics and every leaf of the state.
-    qwen3 and olmoe take the split step, whisper-base (with its frame rows)
-    and rwkv6-3b the step that gathers the whole model."""
+    One arch of each family but the vlm (whisper-base with its frame
+    rows)."""
     import socket
 
     import torch.distributed as dist
@@ -786,15 +817,18 @@ def _nccl_one_rank():
                             device_id=torch.device("cuda", torch.cuda.current_device()))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b", "whisper-base", "rwkv6-3b",
+                                  "zamba2-7b"])
 def test_sharded_serving_on_one_rank_nccl(cuda, arch):
     """The sharded prefill and decode steps on a 1 x 1 mesh over a one-rank
     NCCL group (``shard_params``, ``decode_cache(mesh=)``; olmoe's MoE
-    gathers its routing over the group, llava prepends its frontend rows)
-    equal the unsharded steps on the card bit for bit: a prompt of 4 rows
-    of 40 tokens and 6 new tokens, every step's tokens and logits and the
-    final cache. The prefill launches flash once a layer, on the
-    tensor-core route."""
+    gathers its routing over the group, llava prepends its frontend rows,
+    whisper encodes its frames) equal the unsharded steps on the card bit
+    for bit: a prompt of 4 rows of 40 tokens and 6 new tokens, every step's
+    tokens and logits and every entry of the final cache. The prefill
+    launches flash once an attention layer (whisper: encoder, self and
+    cross; zamba2: each application of the shared block; rwkv6: none), on
+    the tensor-core route."""
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import shard_params
@@ -807,16 +841,20 @@ def test_sharded_serving_on_one_rank_nccl(cuda, arch):
         spec = ModelSpec(get_reduced(arch))
         params = spec.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
         batch = spec.smoke_batch(torch.Generator(device=cuda).manual_seed(1), batch=4, seq=40, device=cuda)
-        max_len = 48 + (spec.cfg.n_frontend_tokens if "frontend" in batch else 0)
+        cfg = spec.cfg
+        max_len = 48 + (cfg.n_frontend_tokens if cfg.family == "vlm" else 0)
+        flash = {"encdec": cfg.enc_layers + 2 * cfg.n_layers, "ssm": 0,
+                 "hybrid": cfg.n_layers // (cfg.shared_attn_every or cfg.n_layers + 1)}.get(cfg.family, cfg.n_layers)
         reset_launch_counts()
         got = serve(spec, mesh, shard_params(spec, params, mesh), batch["tokens"], batch.get("frontend"), max_len, 6)
-        assert launch_counts()["flash_attention"] == spec.cfg.n_layers
-        assert route_counts() == {"tensor_core": spec.cfg.n_layers, "cuda_core": 0}
+        assert launch_counts()["flash_attention"] == flash
+        assert route_counts() == {"tensor_core": flash, "cuda_core": 0}
         want = serve(spec, None, params, batch["tokens"], batch.get("frontend"), max_len, 6)
         assert torch.equal(got[0], want[0]) and len(got[1]) == len(want[1]) == 7
         for a, b in zip(got[1], want[1]):
             assert torch.equal(a, b)
-        for key in ("k", "v"):
+        assert sorted(got[2]) == sorted(want[2])
+        for key in got[2]:
             _bits_equal(got[2][key], want[2][key])
     finally:
         dist.destroy_process_group()
@@ -846,7 +884,8 @@ def test_sharded_serving_two_ranks_on_the_card(cuda, tmp_path):
                     params=str(tmp_path / "params.npz"), tokens=str(tmp_path / "tokens.npy"), max_len=max_len, new=new)
     assert out["launches"]["flash_attention"] == spec.cfg.n_layers
     assert out["routes"] == {"tensor_core": spec.cfg.n_layers, "cuda_core": 0}
-    assert out["local_cache_shapes"] == [[spec.cfg.n_layers, B, max_len // 2, spec.cfg.n_kv_heads, 16]] * 2
+    assert [s["k"] for s in out["local_cache_shapes"]] == [[spec.cfg.n_layers, B, max_len // 2, spec.cfg.n_kv_heads,
+                                                           16]] * 2
     served = torch.tensor(out["tokens"], dtype=torch.int32, device=cuda)
     logits = torch.from_numpy(np.load(tmp_path / "serve" / "logits.npy")).to(cuda)
     saved = np.load(tmp_path / "serve" / "cache.npz")

@@ -152,7 +152,8 @@ def check(tmp: Path, arch: str, mesh, prompt: int, max_len: int, rules: str = "d
     axes = dict(zip(("data", "model"), mesh))
     shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     want_shape = local_shape(shape, filter_spec_for_mesh(pair.spec.cache_pspec()["k"], axes, shape), axes)
-    assert [tuple(s) for s in out["local_cache_shapes"]] == [want_shape] * int(np.prod(mesh)), out["local_cache_shapes"]
+    assert [tuple(s["k"]) for s in out["local_cache_shapes"]] == [want_shape] * int(np.prod(mesh)), \
+        out["local_cache_shapes"]
     # no rank gathers the whole model
     bound = split_gathered_bytes(cfg, axes)
     fsdp = mesh[0] > 1 and rules == "default"

@@ -23,9 +23,11 @@ spawned by ``torch_step_rules.run_ranks``). No JAX.
 - the split step's loss and gradients in fp32 (every arch the split serves,
   each route: local heads, KV heads gathered from a neighbour, a GQA map per
   q head, replicated attention, EP, experts replicated where they do not
-  divide, tied and untied vocab-parallel logits, a vlm) equal the unsharded
-  model's within FP32_TOL of each leaf's max: the split changes the layout,
-  not the function;
+  divide, tied and untied vocab-parallel logits, a vlm; whisper's encoder,
+  decoder and cross-attention; rwkv6's recurrence on local and on cut
+  heads; zamba2's mixers and shared block) equal the unsharded model's
+  within FP32_TOL of each leaf's max (rwkv6: FP32_TOL_ARCH): the split
+  changes the layout, not the function;
 - ``head_route``'s heads against the GQA map q head h -> KV head h // group,
   for every rank of a range of head counts and axis sizes;
 - ``compute_spec`` drops the data axes.
@@ -69,20 +71,56 @@ SPLIT_CASES = [
     ("llama4-scout-17b-a16e", (2, 2)),  # EP and a shared expert
     ("llava-next-34b", (1, 2)),  # vlm
 ]
+# the encdec, rwkv6 and mamba2 families, their constant leaves (norm gains,
+# rwkv6's w0, u, mu, mamba2's dt_bias, A_log, D) made random so that a
+# slice of the wrong heads shows: whisper's self and cross attention and
+# gelu MLP; rwkv6's heads local, and cut (3 heads of 16 over 2: "inner" 48
+# splits into 1.5 heads, every rank computes every head); zamba2's mixers
+# (the gated norm's sum of squares over "model") and its shared block
+# applied twice (its gradient reduced into the shard once a microbatch on 2 x 2)
+FAMILY_CASES = [
+    ("whisper-base", (1, 2), {}), ("whisper-base", (2, 2), {}),
+    ("rwkv6-3b", (1, 2), {}), ("rwkv6-3b", (2, 2), {}), ("rwkv6-3b", (1, 2), {"ssm_heads": 3}),
+    ("zamba2-7b", (1, 2), {}), ("zamba2-7b", (2, 2), {}),
+]
+
+
+# rwkv6's fp32 gradients are ill-conditioned: the unsharded model's own fp32
+# gradient lies up to 1.4e-4 of each leaf's max from its gradient with fp64
+# params (reduced rwkv6-3b, this batch, the constant leaves made random), so
+# any other order of the same sums moves it that far; measured for the split:
+# 7.7e-5 on (1, 2) and (2, 2), 2.5e-5 on (1, 4). A dropped sum over "model"
+# or a gradient counted twice is off by more than 1e-2.
+FP32_TOL_ARCH = {"rwkv6-3b": 3e-4}
+
+
+def _split_model_case(tmp_path, arch, mesh, **extra):
+    out = run_ranks(tmp_path, "model", mesh[0] * mesh[1], worker=WORKER, kind="model", arch=arch, mesh=list(mesh),
+                    axes=["data", "model"], batch=12, seq=16, **extra)
+    peak = out.pop("gathered_peak_bytes")
+    tol = FP32_TOL_ARCH.get(arch, FP32_TOL)
+    assert out.pop("loss") <= tol
+    for name, gap in out.items():
+        assert gap <= tol, (name, gap)
+    # fp32 params: twice the bytes the dry run counts for bf16; nothing is
+    # gathered without a "data" axis of more than one rank
+    bound = 2 * split_gathered_bytes(torch_tp_worker.reduced_config(dict(arch=arch, **extra)),
+                                     dict(zip(("data", "model"), mesh)))
+    assert peak <= bound and (peak > 0) == (mesh[0] > 1), (peak, bound)
 
 
 @pytest.mark.parametrize("arch,mesh", SPLIT_CASES)
 def test_split_loss_and_gradients_equal_the_unsharded_in_fp32(tmp_path, arch, mesh):
-    out = run_ranks(tmp_path, "model", mesh[0] * mesh[1], worker=WORKER, kind="model", arch=arch, mesh=list(mesh),
-                    axes=["data", "model"], batch=12, seq=16)
-    peak = out.pop("gathered_peak_bytes")
-    assert out.pop("loss") <= FP32_TOL
-    for name, gap in out.items():
-        assert gap <= FP32_TOL, (name, gap)
-    # fp32 params: twice the bytes the dry run counts for bf16; nothing is
-    # gathered without a "data" axis of more than one rank
-    bound = 2 * split_gathered_bytes(configs.get_reduced(arch), dict(zip(("data", "model"), mesh)))
-    assert peak <= bound and (peak > 0) == (mesh[0] > 1), (peak, bound)
+    _split_model_case(tmp_path, arch, mesh)
+
+
+@pytest.mark.parametrize("arch,mesh,replace", FAMILY_CASES)
+def test_split_families_loss_and_gradients_equal_the_unsharded_in_fp32(tmp_path, arch, mesh, replace):
+    """The encdec, rwkv6 and mamba2 families' split loss and gradients in
+    fp32 against the unsharded model's, within FP32_TOL of each leaf's max:
+    a dropped sum over "model" (the gated norm's) or a gradient counted
+    once a rank (a replicated branch inside a TP block) is off by far more."""
+    _split_model_case(tmp_path, arch, mesh, randomize=True, replace=replace)
 
 
 def _route_heads(H: int, KV: int, size: int, index: int, q_split: bool, kv_split: bool):

@@ -4,7 +4,8 @@ repro_torch only, no JAX).
 
     python tests/torch_dist_worker.py CASE.json RANK WORLD PORT
 
-CASE.json: arch (reduced config), mesh and axes, device (optional, "cpu";
+CASE.json: arch (reduced config; replace: fields of it replaced, as
+``reduced_config`` reads them), mesh and axes, device (optional, "cpu";
 "cuda": every rank on device 0, still over gloo), accum, lr, compress,
 steps, ckpt_in / step_in (the state to start from, restored onto the mesh
 by ``param_specs``), batch (an .npy of int32 tokens, the whole global batch
@@ -19,18 +20,17 @@ choice) pairs of the global microbatch in ``drops``, and in out's
 expert ids, call by call), unsharded (one rank: also run the unsharded step
 from the same checkpoint, saved in ckpt_out + "_unsharded"). With compress,
 each leaf's int8 quantization step is recorded, a step's leaves in sorted
-order. A split step (the dense, moe and vlm families) also records the
-most weight bytes gathered over "data" alive at once (``gathered_peak``,
-counted by the dry run's ``CountingWeights`` in place of the step's
-``DataParallelWeights``), and every
+order. The split step also records the most weight bytes gathered over
+"data" alive at once (``gathered_peak``, counted by the dry run's
+``CountingWeights`` in place of the step's ``DataParallelWeights``), and
+every
 step the elements of the fp32 gradient sum AdamW is given against those of
 the rank's shards (``grad_elements``, ``shard_elements``). Rank 0's kernel
 launches and routes (``repro_torch.kernels``) are recorded too. With
 ``serve_check`` (a 1 x 1 mesh with ``unsharded``), the trained state's
 params also serve a prompt through the sharded and the unsharded prefill
 and decode steps (``serve`` below): ``serve_equal`` says whether tokens,
-logits and cache agree bit for bit, or ``serve_raises`` holds the error of
-a family the sharded steps do not serve.
+logits and every cache entry agree bit for bit.
 
 CASE.json with ``serve`` (the sharded serving steps, no training): params
 (an .npz of the whole bf16 params as int16 bit patterns), rules (optional:
@@ -42,8 +42,9 @@ of the prefill step and of one decode step at ``max_len`` - 1 instead,
 ``torch.utils.flop_counter``, as the dry run counts them). Rank 0 writes
 to ``out``'s metrics.json the next tokens of each step (global batch), the
 logits of each step (whole vocab, global rows) in ``logits.npy``, the cache
-gathered whole in ``cache.npz`` (bit patterns), each rank's local cache
-shape and the most weight bytes gathered over "data" alive at once.
+gathered whole in ``cache.npz`` (every entry; bf16 as bit patterns), each
+rank's local shape of each cache entry and the most weight bytes gathered
+over "data" alive at once.
 """
 import dataclasses
 import json
@@ -67,6 +68,16 @@ from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
 
 RULES = {"default": None, "tp_only": dict(DEFAULT_RULES, embed=None)}
+
+
+def reduced_config(case):
+    """The reduced config of ``case["arch"]``, with ``case["replace"]``'s
+    fields replaced (``ssm_heads``: the SSM's head count)."""
+    cfg = get_reduced(case["arch"])
+    fields = dict(case.get("replace", {}))
+    if "ssm_heads" in fields:
+        fields["ssm"] = dataclasses.replace(cfg.ssm, heads=fields.pop("ssm_heads"))
+    return dataclasses.replace(cfg, **fields)
 
 
 def restore_target(spec, compress: bool):
@@ -137,15 +148,15 @@ def serve(spec, mesh, params, tokens, frontend, max_len: int, new: int, marks=No
     decode steps: sharded on ``mesh`` (params placed on it), or unsharded
     where ``mesh`` is None. ``marks``: called with "decode" between the
     prefill and the decode steps. Returns (next tokens (B, 1 + new), each
-    step's whole logits (B, V), the cache's k and v whole, this rank's
-    cache shape)."""
+    step's whole logits (B, V), every cache entry whole, this rank's shape
+    of each cache entry)."""
     logits, inner = [], steps.greedy
     steps.greedy = recording_greedy(inner, logits)
     try:
         tok, cache = build_prefill_step(spec, mesh)(params, tokens, frontend)
         if marks is not None:
             marks("decode")
-        n = cache["k"].shape[2]
+        n = cache["k"].shape[2] if "k" in cache else cache["length"]  # a vlm's frontend rows included
         dc = decode_cache(spec, cache, tokens.shape[0], max_len, device=tokens.device, mesh=mesh)
         del cache
         step, out = build_serve_step(spec, mesh), [tok]
@@ -154,25 +165,24 @@ def serve(spec, mesh, params, tokens, frontend, max_len: int, new: int, marks=No
             out.append(tok)
     finally:
         steps.greedy = inner
-    return torch.cat(out, dim=1), logits, {k: gather(dc[k]) for k in ("k", "v")}, tuple(local(dc["k"]).shape)
+    entries = sorted(k for k, v in dc.items() if isinstance(v, torch.Tensor))
+    return (torch.cat(out, dim=1), logits, {k: gather(dc[k]) for k in entries},
+            {k: tuple(local(dc[k]).shape) for k in entries})
 
 
 def serve_check(spec, mesh, params, plain, batch, device) -> dict:
     """A prompt of the batch (4 rows of 32 tokens, 4 new) through the
     sharded steps on ``mesh`` and the unsharded steps on ``plain``: whether
-    they agree bit for bit, or the error a family outside the sharded
-    steps' raises."""
+    they agree bit for bit (tokens, logits and every cache entry)."""
     tokens, frontend = batch["tokens"][:4, :32], batch.get("frontend")
-    frontend = None if frontend is None else frontend[:4]
-    try:
-        build_prefill_step(spec, mesh)
-    except ValueError as e:
-        return {"serve_raises": str(e)}
+    if frontend is not None:  # an encdec's frames of the prompt (S // 4, within the cross cache's rows)
+        frontend = frontend[:4] if spec.cfg.family != "encdec" else frontend[:4, :tokens.shape[1] // 4]
     max_len = (0 if frontend is None or spec.cfg.family != "vlm" else spec.cfg.n_frontend_tokens) + 40
     got = serve(spec, mesh, params, tokens, frontend, max_len, 4)
     want = serve(spec, None, {n: p.detach() for n, p in plain.items()}, tokens, frontend, max_len, 4)
     same = torch.equal(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
-    same = same and len(got[1]) == len(want[1]) and all(torch.equal(got[2][k], want[2][k]) for k in ("k", "v"))
+    same = same and len(got[1]) == len(want[1]) and sorted(got[2]) == sorted(want[2])
+    same = same and all(torch.equal(got[2][k], want[2][k]) for k in got[2])
     return {"serve_equal": bool(same)}
 
 
@@ -318,7 +328,7 @@ def main(case_path: str, rank: int, world: int, port: int) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
     try:
         mesh = init_device_mesh(device.type, tuple(case["mesh"]), mesh_dim_names=tuple(case["axes"]))
-        spec = ModelSpec(get_reduced(case["arch"]))
+        spec = ModelSpec(reduced_config(case))
         (serving if case.get("serve") else training)(case, rank, mesh, device, spec)
     finally:
         dist.destroy_process_group()

@@ -20,9 +20,9 @@ import pytest
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs import OptimConfig, get_reduced
+from repro_torch.configs import OptimConfig
 from repro_torch.models.api import ModelSpec
-from torch_dist_worker import restore_target
+from torch_dist_worker import reduced_config, restore_target
 
 # The loss is a mean of fp32 log-probabilities over bf16 logits that two
 # implementations round alike except where GEMMs sum in another order
@@ -77,8 +77,8 @@ def run_ranks(tmp: Path, name: str, world: int, worker: Path = WORKER, **case) -
     return json.loads((tmp / name / "metrics.json").read_text())
 
 
-def restored(path: Path, arch: str, compress: bool, step: int):
-    spec = ModelSpec(get_reduced(arch))
+def restored(path: Path, arch: str, compress: bool, step: int, replace=None):
+    spec = ModelSpec(reduced_config({"arch": arch, "replace": replace or {}}))
     state, _, got = Checkpointer(str(path), async_save=False).restore(restore_target(spec, compress), step=step,
                                                                       device="cpu")
     assert got == step
@@ -97,10 +97,10 @@ def quant_steps(out, k: int, names):
 
 
 def assert_one_step(before, after, m, want_after, want_m, quant=None, mu_tol=lambda name: MU_TOL,
-                    nu_tol=lambda name: NU_TOL):
+                    nu_tol=lambda name: NU_TOL, gnorm_rtol: float = GNORM_RTOL):
     """One step from ``before`` against the reference's step from the same
     state, by tests/test_torch_train_step.py's rules: loss within
-    LOSS_RTOL, grad norm within GNORM_RTOL, mu and nu within MU_TOL
+    LOSS_RTOL, grad norm within GNORM_RTOL (``gnorm_rtol``), mu and nu within MU_TOL
     (``mu_tol``: a leaf's own, by name) / NU_TOL (``nu_tol``) of the leaf's max, master
     moved by at most 2 lr, the residual within half its quantization step
     and within one of the reference's (``quant``: {leaf: step}, where the
@@ -114,7 +114,7 @@ def assert_one_step(before, after, m, want_after, want_m, quant=None, mu_tol=lam
     (within 4e-7 relative: a few fp32 ulps of another order of the same
     operations)."""
     np.testing.assert_allclose(m["loss"], want_m["loss"], rtol=LOSS_RTOL)
-    np.testing.assert_allclose(m["grad_norm"], want_m["grad_norm"], rtol=GNORM_RTOL)
+    np.testing.assert_allclose(m["grad_norm"], want_m["grad_norm"], rtol=gnorm_rtol)
     assert m["lr"] == want_m["lr"] and m["step"] == want_m["step"] == before["opt"].step + 1
     opt, ref = after["opt"], want_after["opt"]
     assert opt.step == ref.step == before["opt"].step + 1

@@ -14,8 +14,10 @@ CASE.json: "kind" and its fields; rank 0 writes ``out`` (JSON).
   entropy (fp32) against ``F.cross_entropy`` of the whole logits, with
   rows whose max lies on another rank's range; the serving steps'
   collectives (``serving_ops``). Writes the largest gaps.
-- kind "model": ``arch`` (reduced) on ``mesh`` / ``axes`` in fp32 (the
-  params drawn from ``seed`` in fp32 on every rank, the same batch): the
+- kind "model": ``arch`` (reduced, ``replace``'s fields replaced) on
+  ``mesh`` / ``axes`` in fp32 (the params drawn from ``seed`` in fp32 on
+  every rank, with ``randomize`` the constant leaves made random, the same
+  batch): the
   split step's loss and the gradient of each leaf, summed over the
   data-parallel ranks and gathered whole, against the unsharded loss and
   gradient of the same fp32 params and batch. Writes each leaf's largest
@@ -30,7 +32,6 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.configs import get_reduced
 from repro_torch.distributed import sharding
 from repro_torch.distributed.groups import DataParallelRows, DataParallelWeights, ModelParallel
 from repro_torch.launch.dryrun import CountingWeights
@@ -38,6 +39,7 @@ from repro_torch.launch.mesh import data_group, dp_group, dp_index, dp_size, mod
 from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
 from repro_torch.models.common import flat_leaves
+from torch_dist_worker import reduced_config
 
 
 def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -223,10 +225,13 @@ def model_case(case, rank: int, world: int) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
 
     mesh = init_device_mesh("cpu", tuple(case["mesh"]), mesh_dim_names=tuple(case["axes"]))
-    spec = ModelSpec(get_reduced(case["arch"]))
+    spec = ModelSpec(reduced_config(case))
     gen = torch.Generator().manual_seed(case.get("seed", 0))
     schema = spec.schema()
     params = {n: p.float() for n, p in spec.init(gen, device="cpu").items()}
+    for name, leaf in flat_leaves(schema):  # constant leaves made random (a per-head slice must be the right one)
+        if case.get("randomize") and leaf.init in ("zeros", "ones"):
+            params[name] = params[name] + torch.rand(leaf.shape, generator=gen) * 0.5
     batch = spec.smoke_batch(gen, batch=case["batch"], seq=case["seq"], device="cpu")
     if "frontend" in batch:
         batch["frontend"] = batch["frontend"].float()
