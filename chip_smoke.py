@@ -158,6 +158,36 @@ Phases (any failure exits non-zero; so does a missing card):
      its max. Prints prefill, decode and step ms, tok/s, peaks and each
      rank's idle share (profiled decode steps and train step) with no
      limit, and the phase's seconds by arch.
+ 12. layout profiles — JAX's "dp" and "tp_only" layouts
+     (``sharding.layout_rules``; ``layout=`` of the step builders). First
+     flash attention at full-width smollm-135m's train shapes (9 heads over
+     3 KV heads, hd 64, seq 4096: the whole microbatch of 8 rows and a "dp"
+     rank's 4), forward against the plain version and timed beside sdpa as
+     in phase 3, backward as in 7a, in a spawned process (after phases 8–11
+     the main process's profiler records no device op). (a) Full-width,
+     full-depth smollm-135m
+     (random weights from the seed) trained one step through the unsharded
+     step at seq 4096: LAYOUT_ROWS rows, the config's train_4k microbatch of
+     8, so LAYOUT_ACCUM microbatches. (c) "dp" on 1 x 1 over a one-rank NCCL
+     group: step 0's metrics and every updated param bit-equal to (a). (b)
+     "dp" on (data 1, model 2), two ranks on the card over gloo (as phase
+     9), each a replica computing its 4 rows of each microbatch: step 0's
+     loss and grad norm within SPLIT_LOSS_RTOL / SPLIT_GNORM_RTOL of (a)'s,
+     or twice (a)'s own distance from the same gradient in fp32 where that
+     is larger (phase 11's rule: the tied embedding's bf16 gradient at
+     full width is mostly rounding);
+     both ranks' updated params bit-equal; no TP collective (no all-gather,
+     and every all-reduce a leaf's bf16 gradient or the fp32 loss and clip
+     norm); each rank's state allocation within DRYRUN_MEM_RTOL of the "dp"
+     dry run's on (1, 2); flash launches exact on each rank, all
+     tensor-core, at (4, 4096, 9, 64) / KV 3. (d) In the same ranks,
+     whisper-base served under "dp" on (1, 2) and qwen3-1.7b under
+     "tp_only" on (data 2, model 1), each rank 2 of phase 6's 4 prompts
+     (FAMILY_NEW tokens each): every served token within NEAR_TIE of the
+     unsharded steps' teacher-forced max logit (the count equal to the
+     unsharded steps' tokens printed); prefill flash launches exact,
+     tensor-core; under "tp_only" no weight bytes gathered over "data".
+     Prints step, prefill and decode ms and the phase's seconds.
 
 The line before the last is the card as nvidia-smi names it, the one
 before that a JSON object with one entry per kernel, and the last line
@@ -167,6 +197,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -318,6 +349,21 @@ FLASH_SPLIT_FAMILY_TRAIN_SHAPES = (
     ("whisper-base train split 1x2 self-attention, a rank's heads", 4, 4096, 4096, 4, 4, 64, True),
     ("whisper-base train split 1x2 cross-attention, a rank's heads", 4, 4096, 1024, 4, 4, 64, False),
     ("zamba2-7b train split 1x2 shared block, a rank's heads", 1, 4096, 4096, 16, 16, 112, True),
+)
+# phase 12: JAX's layout profiles. smollm-135m trained at seq TRAIN_SEQ
+# with the config's train_4k microbatch (8 rows) over LAYOUT_ACCUM
+# microbatches; "dp" on (data 1, model 2) gives each rank 4 rows of each
+# microbatch
+LAYOUT_ARCH = "smollm-135m"
+LAYOUT_ROWS, LAYOUT_ACCUM = 16, 2
+LAYOUT_MESH = (1, 2)
+LAYOUT_FLASH_PER_STEP = 30 * 2 * LAYOUT_ACCUM  # layers x (forward + remat recompute) x microbatches
+# (arch, layout, mesh) served in phase 12 (d), and their prefill's flash launches a rank
+LAYOUT_SERVE = (("whisper-base", "dp", (1, 2)), ("qwen3-1.7b", "tp_only", (2, 1)))
+LAYOUT_SERVE_FLASH = {"whisper-base": 18, "qwen3-1.7b": 28}
+FLASH_LAYOUT_SHAPES = (
+    ("smollm-135m train", 8, 4096, 4096, 9, 3, 64, True),
+    ("smollm-135m train dp 1x2, a rank's rows", 4, 4096, 4096, 9, 3, 64, True),
 )
 # flash attention at the train shape (forward and backward), at a split
 # rank's heads, and its backward at phase 6's shapes too
@@ -775,10 +821,11 @@ def check_kernels(full):
     return rows
 
 
-def check_flash_family_shapes():
+def check_flash_family_shapes(shapes=None):
     """Phase 3, flash attention at phase 6's shapes, the train shape, a
     split rank's train shape and a sharded serving rank's prefill shape
-    (bf16, tensor-core route): rows for the flash entry's ``extra``."""
+    (bf16, tensor-core route), or at ``shapes`` (phase 12's): rows for the
+    flash entry's ``extra``."""
     from repro_torch.kernels import reset_launch_counts, route_counts
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -787,9 +834,10 @@ def check_flash_family_shapes():
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, B, S, S_kv, H, KV, hd, causal in FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE,
-                                                                    FLASH_SERVE_SHAPE) + \
-            FLASH_SPLIT_FAMILY_SHAPES + FLASH_SPLIT_FAMILY_TRAIN_SHAPES:
+    if shapes is None:
+        shapes = FLASH_FAMILY_SHAPES + (FLASH_TRAIN_SHAPE, FLASH_SPLIT_SHAPE, FLASH_SERVE_SHAPE) + \
+            FLASH_SPLIT_FAMILY_SHAPES + FLASH_SPLIT_FAMILY_TRAIN_SHAPES
+    for name, B, S, S_kv, H, KV, hd, causal in shapes:
         fq = torch.randn((B, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
         fk, fv = (torch.randn((B, S_kv, KV, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         reset_launch_counts()
@@ -1195,12 +1243,12 @@ def serve(full, reduced, card, prompts):
     return counts, routes
 
 
-def check_flash_backward():
+def check_flash_backward(shapes=FLASH_BWD_SHAPES):
     """Phase 7 (a): flash attention's forward and backward (the wrapper's
     autograd node: ``flash_attention_bwd``) against the plain version and
-    its autograd, with the backward's times, the plain version's and sdpa's
-    backward. Each of dq, dk, dv passes TOL's allclose and lies within
-    TOL_BWD_REL of its max |value|."""
+    its autograd at ``shapes``, with the backward's times, the plain
+    version's and sdpa's backward. Each of dq, dk, dv passes TOL's allclose
+    and lies within TOL_BWD_REL of its max |value|."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -1208,7 +1256,7 @@ def check_flash_backward():
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, B, S, S_kv, H, KV, hd, causal in FLASH_BWD_SHAPES:
+    for name, B, S, S_kv, H, KV, hd, causal in shapes:
         def leaf(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
 
@@ -2392,6 +2440,428 @@ def split_families(card, bounds):
     return paths, ranks
 
 
+def layout_state(spec, dev, host: bool):
+    """``make_train_state``'s state (no residual) drawn on the card from the
+    seed, as (a) trains it; with ``host`` moved to the host, so that placed
+    on a mesh the card holds what ``shard_train_state`` puts there alone."""
+    from repro_torch.launch.steps import make_train_state
+
+    state = make_train_state(spec, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    if not host:
+        return state
+    moved = lambda leaves: {n: t.detach().cpu() for n, t in leaves.items()}  # noqa: E731
+    out = {"params": moved(state["params"]),
+           "opt": state["opt"]._replace(mu=moved(state["opt"].mu), nu=moved(state["opt"].nu),
+                                        master=moved(state["opt"].master))}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_batch(cfg, dev):
+    """Phase 12's train batch: LAYOUT_ROWS rows of TRAIN_SEQ tokens from
+    ``SyntheticLM``."""
+    from repro_torch.data.pipeline import SyntheticLM
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(cfg.vocab, TRAIN_SEQ, LAYOUT_ROWS, seed=SEED)
+            .batch_at(0).items()}
+
+
+def param_digest(params) -> str:
+    """A SHA-256 of the bf16 bit patterns of each rank's params' shards."""
+    import hashlib
+
+    from repro_torch.distributed import sharding
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(sharding.local(params[name]).detach().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_leaf_norms(into: dict):
+    """Within the block, the norm of each gradient leaf the train step hands
+    to its clip (this rank's shard) is put in ``into`` by name."""
+    from repro_torch.launch import steps
+
+    inner = steps.leaf_square_sums
+
+    def recording(grads):
+        into.update({n: float(g.double().pow(2).sum()) ** 0.5 for n, g in grads.items()})
+        return inner(grads)
+
+    steps.leaf_square_sums = recording
+    try:
+        yield
+    finally:
+        steps.leaf_square_sums = inner
+
+
+@contextlib.contextmanager
+def recorded_collectives(into: list):
+    """Within the block, every ``torch.distributed`` all-reduce and
+    all-gather this process issues is appended to ``into`` as (op, dtype,
+    elements)."""
+    import torch.distributed as dist
+
+    reduce, gather, gather_into = dist.all_reduce, dist.all_gather, dist.all_gather_into_tensor
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, *args, **kwargs):
+        into.append(("all_reduce " + str(op).split(".")[-1], str(t.dtype), t.numel()))
+        return reduce(t, op, *args, **kwargs)
+
+    def all_gather(parts, t, *args, **kwargs):
+        into.append(("all_gather", str(t.dtype), t.numel()))
+        return gather(parts, t, *args, **kwargs)
+
+    def all_gather_into_tensor(out, t, *args, **kwargs):
+        into.append(("all_gather", str(t.dtype), t.numel()))
+        return gather_into(out, t, *args, **kwargs)
+
+    dist.all_reduce, dist.all_gather, dist.all_gather_into_tensor = all_reduce, all_gather, all_gather_into_tensor
+    try:
+        yield
+    finally:
+        dist.all_reduce, dist.all_gather, dist.all_gather_into_tensor = reduce, gather, gather_into
+
+
+def layout_rank(rank: int, port: int, queue) -> None:
+    """One rank of phase 12 (b) and (d) (a spawned process on device 0): the
+    "dp" train step of smollm-135m on (1, 2), then whisper-base served
+    under "dp" on (1, 2) and qwen3-1.7b under "tp_only" on (2, 1) (a warm-up
+    on a short prompt, then the run with the counts set to 0 before it).
+    Puts its numbers on ``queue``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import OptimConfig, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import CountingWeights
+    from repro_torch.models import dense, encdec
+    from repro_torch.models.api import ModelSpec
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=SPLIT_TIMEOUT_S))
+    try:
+        out = {"rank": rank, "stages": {}, "serve": {}}
+        mark = time.perf_counter()
+
+        def stage(name):  # this rank's seconds since the last stage
+            nonlocal mark
+            out["stages"][name] = time.perf_counter() - mark
+            mark = time.perf_counter()
+
+        # (b) the "dp" train step
+        mesh = init_device_mesh("cuda", LAYOUT_MESH, mesh_dim_names=("data", "model"))
+        spec = ModelSpec(get_config(LAYOUT_ARCH))
+        host = layout_state(spec, dev, host=True)
+        before = requested_bytes()
+        state = steps.shard_train_state(spec, host, mesh, sharding.layout_rules("dp"))
+        out["state_grown"] = requested_bytes() - before
+        del host
+        batch = layout_batch(spec.cfg, dev)
+        optim = OptimConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS + 1)
+        step = steps.build_train_step(spec, optim, LAYOUT_ACCUM, mesh=mesh, layout="dp")
+        stage("train state")
+        shapes, calls = {}, []
+        flash = dense.flash_attention  # recorded where the unsplit encdec calls it too
+        dense.flash_attention = encdec.flash_attention = flash_recorder(shapes)
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        out["leaf_norms"] = {}
+        with recorded_collectives(calls), recorded_leaf_norms(out["leaf_norms"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   train_launches=dict(launch_counts()), train_routes=dict(route_counts()), train_shapes=dict(shapes),
+                   train_peak=torch.cuda.max_memory_allocated(), digest=param_digest(state["params"]),
+                   collectives=calls)
+        del state
+        torch.cuda.empty_cache()
+        stage("train step")
+        # (d) serving in the layouts
+        for arch, layout, shape in LAYOUT_SERVE:
+            smesh = mesh if shape == LAYOUT_MESH else init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+            sspec = ModelSpec(get_config(arch))
+            whole = sspec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            params = sharding.shard_params(sspec, whole, smesh, sharding.layout_rules(layout))
+            del whole
+            torch.cuda.empty_cache()
+            prompt, frontend = family_inputs(sspec.cfg, dev)
+            B, S = prompt.shape
+            counted = []
+
+            def counting_weights(*args):
+                counted.append(CountingWeights(*args))
+                return counted[-1]
+
+            inner_weights, steps.DataParallelWeights = steps.DataParallelWeights, counting_weights
+            prefill_step, serve_step = steps.build_prefill_step(sspec, smesh, layout), \
+                steps.build_serve_step(sspec, smesh, layout)
+            short = 64  # warm-up on a short prompt: first calls, gloo's buffers
+            tok, cache = prefill_step(params, prompt[:, :short], None if frontend is None else frontend[:, :short // 4])
+            serve_step(params, steps.decode_cache(sspec, cache, B, SERVE_MAX_LEN, mesh=smesh, layout=layout), tok, short)
+            del cache
+            shapes.clear()
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            tok, cache = prefill_step(params, prompt, frontend)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            prefill_launches = dict(launch_counts())
+            dc = steps.decode_cache(sspec, cache, B, SERVE_MAX_LEN, mesh=smesh, layout=layout)
+            del cache
+            toks = [tok]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(FAMILY_NEW - 1):
+                tok, dc = serve_step(params, dc, tok, S + i)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            steps.DataParallelWeights = inner_weights
+            out["serve"][arch] = {
+                "tokens": torch.cat(toks, dim=1).cpu().numpy(), "prefill_ms": prefill_ms,
+                "decode_ms": (time.perf_counter() - t0) / (FAMILY_NEW - 1) * 1e3, "prefill_launches": prefill_launches,
+                "launches": dict(launch_counts()), "routes": dict(route_counts()), "shapes": dict(shapes),
+                "gathered_peak": max((w.peak for w in counted), default=0),
+                "cache_shapes": {k: tuple(sharding.local(v).shape) for k, v in dc.items() if isinstance(v, torch.Tensor)}}
+            del params, dc
+            torch.cuda.empty_cache()
+            stage(f"serve {arch}")
+        dense.flash_attention = encdec.flash_attention = flash
+        queue.put(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def layout_flash_rank(rank: int, queue) -> None:
+    """Phase 12's flash attention rows (forward and backward at
+    FLASH_LAYOUT_SHAPES) in a spawned process on device 0: after phases
+    8–11 the main process's profiler windows record no device op (chip run
+    3 of PR 21), where a fresh process's do, as phase 11's ranks show."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    queue.put((check_flash_family_shapes(FLASH_LAYOUT_SHAPES), check_flash_backward(FLASH_LAYOUT_SHAPES)))
+
+
+def layout_profiles(card):
+    """Phase 12: flash attention at smollm-135m's train shapes, then (a) its
+    unsharded train step, (c) "dp" on 1 x 1 over NCCL, (b) "dp" on (1, 2)
+    and (d) "dp" and "tp_only" serving as two ranks on the card
+    (``layout_rank``). Returns (the flash forward rows, the backward rows,
+    {path: (launch counts, routes)}, the ranks)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import OptimConfig, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import cell_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import ModelSpec
+    from repro_torch.models.common import flat_leaves
+    from repro_torch.optim.adamw import global_norm
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    queue = mp.get_context("spawn").SimpleQueue()
+    mp.spawn(layout_flash_rank, args=(queue,), nprocs=1, join=True)
+    flash_rows, bwd_rows = queue.get()
+    cfg = get_config(LAYOUT_ARCH)
+    spec = ModelSpec(cfg)
+    optim = OptimConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS + 1)
+    batch = layout_batch(cfg, dev)
+    paths = {}
+
+    def check_launches(path, n):
+        counts, routes = paths[path]
+        if counts != {**{k: 0 for k in counts}, "flash_attention": n} or routes != {"tensor_core": n, "cuda_core": 0}:
+            raise AssertionError(f"{path}: launches {counts}, routes {routes}; want {n} flash, all tensor-core")
+
+    # (a) the unsharded step
+    state = layout_state(spec, dev, host=False)
+    params32 = {n: p.detach().float() for n, p in state["params"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ref_norms = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_leaf_norms(ref_norms):
+        state, m = steps.build_train_step(spec, optim, LAYOUT_ACCUM)(state, batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    paths[f"train {LAYOUT_ARCH}"] = (launch_counts(), route_counts())
+    ref_m = {k: float(v) for k, v in m.items()}
+    ref_params = {n: p.detach().clone() for n, p in state["params"].items()}
+    print(f"  {LAYOUT_ARCH}: {spec.param_count() / 1e6:.1f} M params, {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV; seq {TRAIN_SEQ}, {LAYOUT_ROWS} rows in {LAYOUT_ACCUM} "
+          f"microbatches")
+    print(f"  (a) unsharded train step 0: loss {ref_m['loss']:.6f} grad_norm {ref_m['grad_norm']:.6f}; {ref_ms:.1f} ms "
+          f"(the first step), {LAYOUT_ROWS * TRAIN_SEQ / ref_ms * 1e3:.0f} tokens/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB — on {card}")
+    del state, m
+    torch.cuda.empty_cache()
+    check_launches(f"train {LAYOUT_ARCH}", LAYOUT_FLASH_PER_STEP)
+    # the same gradient in fp32 (the params cast up): how far (a)'s bf16 loss and grad norm lie from it sets
+    # (b)'s limits where that is above phase 9's, as phase 11 sets them
+    leaves32 = {n: t.requires_grad_(True) for n, t in params32.items()}
+    grads32, loss32 = steps.build_train_step(spec, optim, LAYOUT_ACCUM).grads_and_loss(leaves32, batch)
+    gnorm32 = float(global_norm(grads32))
+    norms32 = {n: float(g.double().pow(2).sum()) ** 0.5 for n, g in grads32.items()}
+    del leaves32, params32, grads32
+    torch.cuda.empty_cache()
+    noise = {"loss": abs(ref_m["loss"] - float(loss32)) / ref_m["loss"],
+             "grad_norm": abs(ref_m["grad_norm"] - gnorm32) / ref_m["grad_norm"]}
+    loss_tol, gnorm_tol = max(SPLIT_LOSS_RTOL, 2 * noise["loss"]), max(SPLIT_GNORM_RTOL, 2 * noise["grad_norm"])
+    print(f"  (a) the same gradient in fp32: loss {float(loss32):.6f} grad_norm {gnorm32:.6f}; the bf16 step's own "
+          f"distance from it: loss {noise['loss']:.3g}, grad norm {noise['grad_norm']:.3g}")
+    # (c) "dp" on 1 x 1 over a one-rank NCCL group: bit for bit
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh("cuda")
+        sharded = steps.shard_train_state(spec, layout_state(spec, dev, host=True), mesh, sharding.layout_rules("dp"))
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded, m = steps.build_train_step(spec, optim, LAYOUT_ACCUM, mesh=mesh, layout="dp")(sharded, batch)
+        torch.cuda.synchronize()
+        ms_1x1 = (time.perf_counter() - t0) * 1e3
+        paths[f"train dp 1x1 {LAYOUT_ARCH}"] = (launch_counts(), route_counts())
+        same = {k: float(v) for k, v in m.items()} == ref_m and \
+            all(torch.equal(sharding.local(p), ref_params[n]) for n, p in sharded["params"].items())
+        del sharded, m
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"  (c) \"dp\" on 1 x 1 over NCCL: step 0's metrics and every updated param bit-equal to (a): {same}; "
+          f"{ms_1x1:.1f} ms")
+    if not same:
+        raise AssertionError("the \"dp\" step on 1 x 1 is not the unsharded step bit for bit")
+    check_launches(f"train dp 1x1 {LAYOUT_ARCH}", LAYOUT_FLASH_PER_STEP)
+    del ref_params
+    torch.cuda.empty_cache()
+    # (b) and (d): two ranks on the card over gloo
+    t0 = time.perf_counter()
+    mp.spawn(layout_rank, args=(free_port(), queue), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = sorted((queue.get() for _ in range(2)), key=lambda r: r["rank"])
+    torch.cuda.empty_cache()
+    want_state = cell_bytes(LAYOUT_ARCH, "train_4k", dict(zip(("data", "model"), LAYOUT_MESH)), cfg=cfg,
+                            layout="dp")["bytes"]
+    leaves = {n: leaf for n, leaf in flat_leaves(spec.schema())}
+    grad_sizes = {math.prod(leaf.shape[1:] if leaf.axes[0] == "layers" else leaf.shape) for leaf in leaves.values()}
+    want_flash = ((LAYOUT_ROWS // LAYOUT_ACCUM // LAYOUT_MESH[1], TRAIN_SEQ, cfg.n_heads, cfg.resolved_head_dim),
+                  cfg.n_kv_heads, TRAIN_SEQ)
+    print(f"  (b) \"dp\" on (data 1, model 2): two ranks on {card}, gloo with CUDA tensors; {wall:.1f} s with the "
+          "ranks' start; rank 0's seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["stages"].items()))
+    for r in ranks:
+        dl = abs(r["loss"] - ref_m["loss"]) / ref_m["loss"]
+        dg = abs(r["grad_norm"] - ref_m["grad_norm"]) / ref_m["grad_norm"]
+        gap = abs(r["state_grown"] - want_state["state"]) / want_state["state"]
+        kinds = {}
+        for op, dtype, n in r["collectives"]:
+            kinds[op, dtype] = kinds.get((op, dtype), 0) + n
+        tp = [c for c in r["collectives"] if not (c[0] == "all_reduce SUM" and (
+            (c[1] == "torch.bfloat16" and c[2] in grad_sizes) or (c[1] == "torch.float32" and c[2] <= len(leaves))))]
+        print(f"  rank {r['rank']}: step 0 loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f}: gaps to (a) {dl:.3g} "
+              f"(tol {loss_tol:.3g}), {dg:.3g} (tol {gnorm_tol:.3g}); {r['step_ms']:.1f} ms (the first step; "
+              f"gloo's host staging), {LAYOUT_ROWS * TRAIN_SEQ / r['step_ms'] * 1e3:.0f} tokens/s; state "
+              f"{r['state_grown'] / 1e9:.4f} GB against the \"dp\" dry run's {want_state['state'] / 1e9:.4f} GB: gap "
+              f"{gap:.2e} (tol {DRYRUN_MEM_RTOL}); collectives: "
+              + ", ".join(f"{op} {dtype[6:]} x{sum(1 for c in r['collectives'] if c[:2] == (op, dtype))} "
+                          f"({n * (2 if 'bfloat16' in dtype else 4) / 1e6:.1f} MB)" for (op, dtype), n in kinds.items())
+              + f"; flash {r['train_shapes']}; peak {r['train_peak'] / 1e9:.2f} GB")
+        top = sorted(norms32, key=lambda n: -norms32[n])[:4]
+        print(f"    rank {r['rank']}: the largest leaves' gradient norms, (b) / (a) / fp32: "
+              + ", ".join(f"{n} {r['leaf_norms'][n]:.5f} / {ref_norms[n]:.5f} / {norms32[n]:.5f}" for n in top))
+        if dl > loss_tol or dg > gnorm_tol:
+            raise AssertionError(f"rank {r['rank']}: the \"dp\" step 0's loss or grad norm is not (a)'s")
+        if gap > DRYRUN_MEM_RTOL:
+            raise AssertionError(f"rank {r['rank']}: the \"dp\" dry run's state bytes are not the card's allocation")
+        if tp or not kinds:
+            raise AssertionError(f"rank {r['rank']}: collectives beyond the gradient's, the loss's and the norm's: "
+                                 f"{tp[:5]}")
+        if r["train_launches"] != {**{k: 0 for k in r["train_launches"]}, "flash_attention": LAYOUT_FLASH_PER_STEP} or \
+                r["train_routes"] != {"tensor_core": LAYOUT_FLASH_PER_STEP, "cuda_core": 0} or \
+                r["train_shapes"] != {want_flash: LAYOUT_FLASH_PER_STEP}:
+            raise AssertionError(f"rank {r['rank']}: train launches {r['train_launches']}, {r['train_routes']}, "
+                                 f"{r['train_shapes']}; want {LAYOUT_FLASH_PER_STEP} flash at {want_flash}, all "
+                                 "tensor-core")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("the \"dp\" ranks' updated params differ")
+    print(f"  (b) both ranks' updated params bit-equal: sha256 {ranks[0]['digest'][:16]}")
+    paths[f"train dp 1x2 {LAYOUT_ARCH}"] = ({k: sum(r["train_launches"][k] for r in ranks) for k in ranks[0]["train_launches"]},
+                                           {k: sum(r["train_routes"][k] for r in ranks) for k in ranks[0]["train_routes"]})
+    # (d) each served token against the unsharded steps, teacher-forced on the run's tokens
+    for arch, layout, shape in LAYOUT_SERVE:
+        sspec = ModelSpec(get_config(arch))
+        params = sspec.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        prompt, frontend = family_inputs(sspec.cfg, dev)
+        B, S = prompt.shape
+        ref_tokens, _, ref_prefill, ref_decode = serve_run(sspec, params, prompt, None, frontend, FAMILY_NEW)
+        served = torch.from_numpy(ranks[0]["serve"][arch]["tokens"]).to(dev)
+        with torch.no_grad():
+            first, cache = sspec.prefill(params, prompt, frontend)
+            dc, logits = steps.decode_cache(sspec, cache, B, SERVE_MAX_LEN, device=dev), [first]
+            del cache
+            for i in range(FAMILY_NEW - 1):
+                lg, dc = sspec.decode_step(params, dc, served[:, i:i + 1], S + i)
+                logits.append(lg)
+        forced = torch.stack(logits, dim=1).float()
+        del dc, logits, params
+        torch.cuda.empty_cache()
+        gaps = forced.max(-1).values - forced.gather(-1, served.long()[..., None])[..., 0]
+        worst = float(gaps.max())
+        path = f"serve {layout} {shape[0]}x{shape[1]} {arch}"
+        n_flash = LAYOUT_SERVE_FLASH[arch]
+        print(f"  (d) {arch} under \"{layout}\" on (data {shape[0]}, model {shape[1]}), {B} prompts of {S} tokens"
+              f"{'' if frontend is None else f' (frames {tuple(frontend.shape)})'}, {FAMILY_NEW} tokens each: "
+              f"{int((served == ref_tokens).sum())} of {served.numel()} tokens equal to the unsharded steps' (prefill "
+              f"{ref_prefill:.1f} ms, decode {ref_decode:.2f} ms a step); the largest gap of a served token to their "
+              f"teacher-forced max logit {worst:.4f} (tol {NEAR_TIE}), {int((gaps == 0).sum())}/{gaps.numel()} at the max")
+        for r in ranks:
+            x = r["serve"][arch]
+            print(f"    rank {r['rank']}: prefill {x['prefill_ms']:.1f} ms, decode {x['decode_ms']:.2f} ms a step, "
+                  f"{B / x['decode_ms'] * 1e3:.1f} tok/s; cache {x['cache_shapes']}; flash {x['shapes']}; weight "
+                  f"bytes gathered over \"data\" at once {x['gathered_peak']}")
+            if not np.array_equal(x["tokens"], ranks[0]["serve"][arch]["tokens"]):
+                raise AssertionError(f"{path}: the two ranks returned different tokens")
+            if x["launches"] != {**{k: 0 for k in x["launches"]}, "flash_attention": n_flash} or \
+                    x["prefill_launches"] != x["launches"] or x["routes"] != {"tensor_core": n_flash, "cuda_core": 0}:
+                raise AssertionError(f"{path} rank {r['rank']}: launches {x['launches']} (prefill "
+                                     f"{x['prefill_launches']}), {x['routes']}; want {n_flash} flash in the prefill, "
+                                     "none in decode, all tensor-core")
+            rows = {q[0] for q, _, _ in x["shapes"]}
+            if rows != {B // 2}:
+                raise AssertionError(f"{path} rank {r['rank']}: flash ran on {rows} rows, not a rank's {B // 2}")
+            if layout == "tp_only" and x["gathered_peak"] != 0:
+                raise AssertionError(f"{path} rank {r['rank']}: {x['gathered_peak']} weight bytes gathered over "
+                                     "\"data\"")
+        if worst > NEAR_TIE:
+            raise AssertionError(f"{path}: a served token is {worst} below the unsharded steps' max logit")
+        paths[path] = ({k: sum(r["serve"][arch]["launches"][k] for r in ranks) for k in ranks[0]["serve"][arch]["launches"]},
+                       {k: sum(r["serve"][arch]["routes"][k] for r in ranks) for k in ranks[0]["serve"][arch]["routes"]})
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return flash_rows, bwd_rows, paths, ranks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2447,6 +2917,10 @@ def main() -> int:
     with phase("split families"):
         family_paths, family_ranks = split_families(card, family_bounds)
     torch.cuda.empty_cache()
+    with phase("layout profiles"):
+        layout_flash, layout_bwd, layout_paths, layout_ranks = layout_profiles(card)
+    torch.cuda.empty_cache()
+    family_paths.update(layout_paths)
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
             "library_device_ms")
@@ -2466,7 +2940,7 @@ def main() -> int:
         extra = r.get("extra", []) + [dict(g1, shape=f"{moe_full.name}, group size 1: {g1.get('shape', 'with the write log')}")]
         extra += [dict(x, shape=f"{moe_full.name}, group size 1: {x['shape']}") for x in g1.get("extra", [])]
         if name == "flash_attention":
-            extra += flash_family
+            extra += flash_family + layout_flash
         entry["extra"] = [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "bound_ms": x["bound"][0],
                            "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in extra]
         entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name],
@@ -2497,10 +2971,15 @@ def main() -> int:
         f"{part} split 1x2 {arch} rank {r['rank']}": {f"q {q} / KV {kv} of {n_kv}": n for (q, kv, n_kv), n in
                                                       r[f"{part}_shapes"].items()}
         for arch, rs in family_ranks.items() for r in rs for part in ("serve", "train")}
+    kernels[3]["layout_launches_per_rank"] = {
+        f"train dp 1x2 {LAYOUT_ARCH} rank {r['rank']}": r["train_launches"]["flash_attention"] for r in layout_ranks}
+    kernels[3]["layout_launches_per_rank"].update({
+        f"serve {layout} {shape[0]}x{shape[1]} {arch} rank {r['rank']}": r["serve"][arch]["launches"]["flash_attention"]
+        for arch, layout, shape in LAYOUT_SERVE for r in layout_ranks})
     kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
                                "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
                                "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
-                               **{k: x[k] for k in keys}} for x in flash_backward]
+                               **{k: x[k] for k in keys}} for x in flash_backward + layout_bwd]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

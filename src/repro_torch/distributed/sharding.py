@@ -24,6 +24,14 @@ The split train step computes in another layout than it stores:
 JAX's ``use_weight`` constrains a weight to at its use site), and
 ``head_route`` gives the head-aligned q and KV heads a rank on the "model"
 axis computes, where JAX's flattened split of ``H * hd`` may cut a head.
+
+Layout profiles (JAX's ``REPRO_LAYOUT``, ``repro/launch/dryrun.py``):
+"default" is the rules above with the batch over ("pod", "data");
+"tp_only" drops FSDP (``embed`` replicated: weights split over "model"
+only); "dp" replicates every parameter and spreads the batch over ("data",
+"model"), with no "model" split in the compute (JAX's
+``REPRO_BATCH_AXES=data,model REPRO_MODEL_HINTS=0``). ``layout_rules``,
+``layout_batch_spec`` and ``layout_cache_pspec`` give each profile's.
 """
 from __future__ import annotations
 
@@ -48,6 +56,24 @@ DEFAULT_RULES: Dict[str, Any] = {
     "inner": "model",
     "experts": "model",
 }
+
+
+LAYOUTS = ("default", "tp_only", "dp")
+_LOGICAL_AXES = ("layers", "vocab", "embed", "heads", "kv", "ffn", "inner", "experts")
+_DP_BATCH_AXES = ("data", "model")
+
+
+def layout_rules(name: str) -> Dict[str, Any]:
+    """The logical-axis rules of layout profile ``name`` (JAX's
+    ``dryrun.py:147-160``): "dp" maps every logical axis to None,
+    "tp_only" is DEFAULT_RULES with ``embed`` None."""
+    if name == "dp":
+        return {k: None for k in _LOGICAL_AXES}
+    if name == "tp_only":
+        return dict(DEFAULT_RULES, embed=None)
+    if name == "default":
+        return dict(DEFAULT_RULES)
+    raise ValueError(f"unknown layout {name!r}; one of {LAYOUTS}")
 
 
 def _entry(entry):
@@ -113,6 +139,41 @@ def batch_spec(mesh) -> PartitionSpec:
     shape = mesh_shape(mesh)
     axes = tuple(a for a in ("pod", "data") if a in shape)
     return P(axes if axes else None)
+
+
+def layout_batch_spec(name: str, mesh) -> "PartitionSpec":
+    """The global batch dim's spec under layout profile ``name``:
+    ``batch_spec(mesh)``, or ("data", "model") for "dp" (as JAX writes it:
+    no "pod", so the pods hold the same rows; ``filter_spec_for_mesh``
+    drops an axis the mesh lacks)."""
+    layout_rules(name)  # the name's check
+    return P(_DP_BATCH_AXES) if name == "dp" else batch_spec(mesh)
+
+
+def layout_batch_axes(name: str, mesh) -> Tuple[str, ...]:
+    """The mesh axes the batch rows split over under ``name``, major
+    first: the mesh's among ``layout_batch_spec``'s."""
+    sizes = mesh_shape(mesh)
+    return tuple(a for a in _names(layout_batch_spec(name, mesh)[0]) if a in sizes)
+
+
+def layout_cache_pspec(name: str, pspec: Mapping[str, Any]) -> Dict[str, "PartitionSpec"]:
+    """A model's ``cache_pspec`` under layout profile ``name``: as it is,
+    but for "dp", where the batch marker ("pod", "data") resolves to
+    ("data", "model") and a "model" entry to None (JAX's ``shard_hint``
+    under ``REPRO_BATCH_AXES=data,model REPRO_MODEL_HINTS=0``): each
+    rank's rows, the sequence whole. JAX's dry run instead places the
+    cache by ``cache_pspec`` beside the "dp" batch and lets GSPMD reshard."""
+    if name != "dp":
+        layout_rules(name)
+        return dict(pspec)
+
+    def entry(e):
+        if _names(e) == DATA_AXES:
+            return _DP_BATCH_AXES
+        return None if MODEL_AXIS in _names(e) else e
+
+    return {k: P(*(entry(e) for e in spec)) for k, spec in pspec.items()}
 
 
 def filter_spec_for_mesh(spec, mesh, shape: Optional[Sequence[int]] = None) -> PartitionSpec:

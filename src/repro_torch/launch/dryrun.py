@@ -51,15 +51,29 @@ process group and no data:
     vocab-parallel embedding and cross entropy, EP's combine, and the KV or
     whole projections a head route gathers); times ``accum_steps``.
 
+Every count is of one layout profile (``--layout``, or JAX's
+``REPRO_LAYOUT`` when the flag is not given; ``sharding.LAYOUTS``): the
+params and state by its ``layout_rules``, the inputs and the rows by its
+``layout_batch_spec`` ("dp": over ("data", "model"), all of a microbatch
+on every device where those do not divide it, as in JAX), a decode cache
+by ``layout_cache_pspec`` ("dp": the rank's rows with the sequence whole,
+where JAX's dry run places it by ``cache_pspec`` and lets GSPMD reshard);
+"dp" splits nothing over "model" and "tp_only" gathers nothing over
+"data". The microbatch count is JAX's in every layout (over the data axes).
+Every record carries ``"layout"``; "default"'s are written under
+``<out>/<mesh_kind>/``, another layout's under ``<out>/<layout>/<mesh_kind>/``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --layout dp   # or REPRO_LAYOUT=dp
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import time
 import weakref
 from pathlib import Path
@@ -70,7 +84,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, SHAPES, OptimConfig, ShapeConfig, get_config, shape_applicable
 from repro_torch.distributed.groups import DataParallelWeights, ModelParallel, ShapeOnlyGroup, ShapeOnlyRows
-from repro_torch.distributed.sharding import (MODEL_AXIS, batch_spec, compute_spec, filter_spec_for_mesh, head_route,
+from repro_torch.distributed.sharding import (LAYOUTS, MODEL_AXIS, compute_spec, filter_spec_for_mesh, head_route,
+                                              layout_batch_axes, layout_batch_spec, layout_cache_pspec, layout_rules,
                                               local_bytes, local_shape, param_specs, split_dim)
 from repro_torch.launch.mesh import dp_size, production_mesh_shape
 from repro_torch.launch.steps import (abstract_train_state, build_prefill_step, build_serve_step, build_train_step,
@@ -98,16 +113,16 @@ def accum_steps(cfg, shape, mesh: Mapping[str, int]) -> int:
     return accum
 
 
-def _batch_bytes(t: torch.Tensor, mesh) -> int:
-    bspec = batch_spec(mesh)
+def _batch_bytes(t: torch.Tensor, mesh, layout: str = "default") -> int:
+    bspec = layout_batch_spec(layout, mesh)
     spec = filter_spec_for_mesh((bspec[0],) + (None,) * (t.dim() - 1), mesh, t.shape)
     return local_bytes(t.shape, t.element_size(), spec, mesh)
 
 
-def _device_rows(batch: int, mesh) -> int:
+def _device_rows(batch: int, mesh, layout: str = "default") -> int:
     """The rows of a ``batch`` one device computes: its share over the
-    data-parallel axes, or all of them where those do not divide it."""
-    return local_shape((batch,), filter_spec_for_mesh(batch_spec(mesh), mesh, (batch,)), mesh)[0]
+    layout's batch axes, or all of them where those do not divide it."""
+    return local_shape((batch,), filter_spec_for_mesh(layout_batch_spec(layout, mesh), mesh, (batch,)), mesh)[0]
 
 
 class CountingWeights(DataParallelWeights):
@@ -139,14 +154,15 @@ class CountingWeights(DataParallelWeights):
         self.alive -= n
 
 
-def _gathered_whole(cfg, specs, mesh: Mapping[str, int]):
-    """The leaves rank 0 gathers whole over "model" in a split step (None
-    without a "model" axis of more than one rank): an attention's head route
+def _gathered_whole(cfg, specs, mesh: Mapping[str, int], layout: str = "default"):
+    """The leaves rank 0 gathers whole over "model" in a split step (none
+    without a "model" axis of more than one rank, or under "dp", which
+    splits nothing over it): an attention's head route
     "replicated" (wq, wk, wv, wo and the biases) or "kv_gather" (wk, wv, bk,
     bv), and a recurrence's heads cut by the split (rwkv6's time-mix and
     Mamba2's mixer projections, every head on every rank)."""
     size = mesh.get(MODEL_AXIS, 1)
-    if size == 1:
+    if size == 1 or layout == "dp":
         return set()
     split = lambda name: split_dim(compute_spec(specs[name]), MODEL_AXIS) is not None  # noqa: E731
     out = set()
@@ -177,17 +193,18 @@ def _gathered_whole(cfg, specs, mesh: Mapping[str, int]):
     return out
 
 
-def split_gathered_bytes(cfg, mesh: Mapping[str, int]) -> int:
+def split_gathered_bytes(cfg, mesh: Mapping[str, int], layout: str = "default") -> int:
     """The split step's weights gathered at once on a device: the largest
     layer's compute shards (of the stack whose layer is largest: the
     encoder's or the decoder's, say), with the whole projections it gathers
     over "model" (``_gathered_whole``), plus the compute shards of every
     leaf outside the layers (the embedding, ``lm_head``, zamba2's shared
     block, whole where it gathers them). A leaf the data axes do not split
-    is computed on a view of its shard: 0 bytes."""
+    is computed on a view of its shard: 0 bytes (every leaf under "dp" and
+    "tp_only", whose rules split nothing over "data")."""
     spec = ModelSpec(cfg)
-    specs = param_specs(spec.schema(), mesh)
-    whole = _gathered_whole(cfg, specs, mesh)
+    specs = param_specs(spec.schema(), mesh, layout_rules(layout))
+    whole = _gathered_whole(cfg, specs, mesh, layout)
     layers_of: Dict[str, int] = {}
     outside = 0
     for name, leaf in flat_leaves(spec.schema()):
@@ -204,53 +221,57 @@ def split_gathered_bytes(cfg, mesh: Mapping[str, int]) -> int:
     return max(layers_of.values(), default=0) + outside
 
 
-def cache_bytes(spec: ModelSpec, batch: int, max_len: int, mesh: Mapping[str, int]) -> int:
+def cache_bytes(spec: ModelSpec, batch: int, max_len: int, mesh: Mapping[str, int], layout: str = "default") -> int:
     """One device's bytes of ``spec.init_cache(batch, max_len)`` under
-    ``cache_pspec`` through ``filter_spec_for_mesh`` (``length`` a 0-d
-    int32, as JAX's ``cache_specs``)."""
-    cspec = spec.cache_pspec()
+    ``cache_pspec`` (``layout_cache_pspec``'s for ``layout``) through
+    ``filter_spec_for_mesh`` (``length`` a 0-d int32, as JAX's
+    ``cache_specs``)."""
+    cspec = layout_cache_pspec(layout, spec.cache_pspec())
     return sum(local_bytes(t.shape, t.element_size(), filter_spec_for_mesh(cspec[k], mesh, t.shape), mesh)
                for k, t in spec.cache_specs(batch, max_len).items())
 
 
-def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int], cfg=None) -> Dict[str, Any]:
-    """The byte columns of one cell on the mesh ``{axis: size}`` (no data);
-    ``cfg``: the arch's config cut (its depth, say) in place of the full
-    one."""
+def cell_bytes(arch: str, shape_name: str, mesh: Mapping[str, int], cfg=None,
+               layout: str = "default") -> Dict[str, Any]:
+    """The byte columns of one cell on the mesh ``{axis: size}`` (no data)
+    under ``layout``; ``cfg``: the arch's config cut (its depth, say) in
+    place of the full one."""
     cfg, shape = cfg or get_config(arch), SHAPES[shape_name]
     spec = ModelSpec(cfg)
-    specs = param_specs(spec.schema(), mesh)
+    specs = param_specs(spec.schema(), mesh, layout_rules(layout))
     state = abstract_train_state(spec, compress=True)
     per = lambda leaves: sum(local_bytes(t.shape, t.element_size(), specs[n], mesh) for n, t in leaves.items())  # noqa: E731
     opt = state["opt"]
     rec: Dict[str, Any] = {"params": per(state["params"]), "residual": per(state["residual"])}
     inputs = spec.input_specs(shape)
     cache = inputs.pop("cache", None)
-    rec["inputs"] = sum(_batch_bytes(t, mesh) if t.dim() else _nbytes(t) for t in inputs.values())
-    extra = {"gathered_params": split_gathered_bytes(cfg, mesh)}
+    rec["inputs"] = sum(_batch_bytes(t, mesh, layout) if t.dim() else _nbytes(t) for t in inputs.values())
+    extra = {"gathered_params": split_gathered_bytes(cfg, mesh, layout)}
     if shape.kind == "train":
         rec["opt"] = per(opt.mu) + per(opt.nu) + per(opt.master) + _nbytes(opt.step)
         extra["grad_sum"] = per(opt.master)
     else:
         rec["opt"] = 0
     if cache is not None:
-        rec["cache"] = cache_bytes(spec, shape.global_batch, shape.seq_len, mesh)
+        rec["cache"] = cache_bytes(spec, shape.global_batch, shape.seq_len, mesh, layout)
     rec["state"] = rec["params"] + rec["opt"]
     return {"bytes": rec, "port_step_bytes": extra,
             "total_bytes": rec["state"] + rec["inputs"] + rec.get("cache", 0) + sum(extra.values())}
 
 
-def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") -> Dict[str, Any]:
-    """Per-device FLOPs of one step of ``cfg`` at ``shape``: one microbatch
-    of the device's rows through the step's model work under
-    ``FlopCounterMode``, times the microbatch count. ``device``: meta (no
-    data), or a real device, to count the same work computed."""
+def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta",
+               layout: str = "default") -> Dict[str, Any]:
+    """Per-device FLOPs of one step of ``cfg`` at ``shape`` under
+    ``layout``: one microbatch of the device's rows through the step's
+    model work under ``FlopCounterMode``, times the microbatch count.
+    ``device``: meta (no data), or a real device, to count the same work
+    computed."""
     spec = ModelSpec(cfg)
     dev = torch.device(device)
     if math.prod(mesh.values()) > 1:
         if dev.type != "meta":
             raise ValueError("a split cell is counted on the meta device only")
-        return (_split_flops if shape.kind == "train" else _split_serve_flops)(spec, shape, mesh)
+        return (_split_flops if shape.kind == "train" else _split_serve_flops)(spec, shape, mesh, layout)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(0)
     params = spec.abstract_params() if gen is None else spec.init(gen, device=dev)
     for p in params.values():
@@ -288,39 +309,45 @@ def cell_flops(cfg, shape: ShapeConfig, mesh: Mapping[str, int], device="meta") 
             **({"accum_steps": accum} if shape.kind == "train" else {})}
 
 
-def _meta_split(spec: ModelSpec, mesh: Mapping[str, int], grad: bool, cache=None):
-    """Rank 0 of ``mesh`` on the meta device: (its storage shards of the
-    params, requiring grad with ``grad``; the ShapeOnlyGroups over "data",
-    the data-parallel ranks and "model", which count the bytes sent; the
-    ``CountingWeights``; the step's ``layers.Split``, with the cache
-    entries' specs ``cache``)."""
-    specs = param_specs(spec.schema(), mesh)
+def _meta_split(spec: ModelSpec, mesh: Mapping[str, int], grad: bool, cache=None, layout: str = "default",
+                rows: int = 1):
+    """Rank 0 of ``mesh`` on the meta device under ``layout``: (its storage
+    shards of the params, requiring grad with ``grad``; the ShapeOnlyGroups
+    over "data", the ``rows`` ranks the gradient is summed over and
+    "model", which count the bytes sent; the ``CountingWeights``; the
+    step's ``layers.Split``, with the cache entries' specs ``cache``)."""
+    specs = param_specs(spec.schema(), mesh, layout_rules(layout))
     stacked = {n for n, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
     params = {n: torch.empty(local_shape(t.shape, specs[n], mesh), dtype=t.dtype, device="meta").requires_grad_(grad)
               for n, t in spec.abstract_params().items()}
-    dp = dp_size(mesh)
-    data, dp_group, model = ShapeOnlyGroup(mesh.get("data", 1)), ShapeOnlyGroup(dp), ShapeOnlyGroup(mesh.get(MODEL_AXIS, 1))
-    weights = CountingWeights(data, data.size, 0, dp_group, dp)
-    tp = ModelParallel(model, model.size, 0) if model.size > 1 else None
+    data, dp_group = ShapeOnlyGroup(mesh.get("data", 1)), ShapeOnlyGroup(rows)
+    model = ShapeOnlyGroup(mesh.get(MODEL_AXIS, 1))
+    weights = CountingWeights(data, data.size, 0, dp_group, rows)
+    tp = ModelParallel(model, model.size, 0) if model.size > 1 and layout != "dp" else None
     split = layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, tp, cache)
     return params, (data, dp_group, model), weights, split
 
 
-def _split_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int]) -> Dict[str, Any]:
+def _split_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int],
+                 layout: str = "default") -> Dict[str, Any]:
     """``cell_flops`` of a split train cell: one microbatch of rank 0's rows
-    through the split step's accumulation on meta, its params rank 0's
-    storage shards, its collectives over ``ShapeOnlyGroup``s that count the
-    bytes sent; FLOPs and bytes times the microbatch count. Also the most
-    weight bytes ``use_weight`` held gathered at once."""
-    params, (data, dp_group, model), weights, split = _meta_split(spec, mesh, grad=True)
-    dp = dp_size(mesh)
+    (under "dp" every row where the batch axes do not divide the
+    microbatch, with no gradient sum) through the split step's accumulation
+    on meta, its params rank 0's storage shards, its collectives over
+    ``ShapeOnlyGroup``s that count the bytes sent; FLOPs and bytes times
+    the microbatch count. Also the most weight bytes ``use_weight`` held
+    gathered at once."""
     accum = accum_steps(spec.cfg, shape, mesh)
-    rows = shape.global_batch // accum // dp
+    mb = shape.global_batch // accum
+    n = dp_size(mesh, layout_batch_axes(layout, mesh))
+    dp = n if mb % n == 0 else 1  # the ranks the rows split over, as the step's ``_Rows`` takes them
+    rows = mb // dp
+    params, (data, dp_group, model), weights, split = _meta_split(spec, mesh, grad=True, layout=layout, rows=dp)
     batch = {k: torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device="meta")
              for k, t in spec.input_specs(shape).items()}
     counter = FlopCounterMode(display=False)
     step = build_train_step(spec, OptimConfig(), accum_steps=1)
-    with layers.data_parallel_rows(ShapeOnlyRows(dp)), layers.split_compute(split), counter:
+    with layers.data_parallel_rows(ShapeOnlyRows(n) if mb % n == 0 else None), layers.split_compute(split), counter:
         step.grads_and_loss(params, batch)
     return {"flops": counter.get_total_flops() * accum, "rows_per_device": rows, "accum_steps": accum,
             "collective_bytes": {"fsdp_gather": int(data.sent * accum), "grad_reduce": int(dp_group.sent * accum),
@@ -328,26 +355,30 @@ def _split_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int]) -
             "use_weight_peak_bytes": weights.peak}
 
 
-def _split_serve_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int]) -> Dict[str, Any]:
+def _split_serve_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, int],
+                       layout: str = "default") -> Dict[str, Any]:
     """``cell_flops`` of a split prefill or decode cell: the sharded step's
     body (``steps.prefill_local`` / ``decode_local``) on rank 0's rows,
     storage shards and cache chunk on meta, under no grad, its collectives
     over ``ShapeOnlyGroup``s that count the bytes sent. A decode cell's
     cache is ``cache_pspec``'s local shape at the cell's length, and the
-    step writes and attends at its last position. Also the most weight
-    bytes ``use_weight`` held gathered at once."""
+    step writes and attends at its last position (the cache by
+    ``layout_cache_pspec``). Also the most weight bytes ``use_weight`` held
+    gathered at once."""
     inputs = spec.input_specs(shape)
     cache = cache_specs = None
     if shape.kind == "decode":
-        cspec = spec.cache_pspec()
+        cspec = layout_cache_pspec(layout, spec.cache_pspec())
         entries = {k: t for k, t in inputs["cache"].items() if t.dim()}
         cache_specs = {k: filter_spec_for_mesh(cspec[k], mesh, t.shape) for k, t in entries.items()}
         cache = {k: torch.empty(local_shape(t.shape, cache_specs[k], mesh), dtype=t.dtype, device="meta")
                  for k, t in entries.items()}
         cache["length"] = shape.seq_len - 1
-    params, (data, _, model), weights, split = _meta_split(spec, mesh, grad=False, cache=cache_specs)
-    rows = _device_rows(shape.global_batch, mesh)
-    dp_rows = ShapeOnlyRows(dp_size(mesh)) if rows * dp_size(mesh) == shape.global_batch else None
+    n = dp_size(mesh, layout_batch_axes(layout, mesh))
+    params, (data, _, model), weights, split = _meta_split(spec, mesh, grad=False, cache=cache_specs, layout=layout,
+                                                           rows=n)
+    rows = _device_rows(shape.global_batch, mesh, layout)
+    dp_rows = ShapeOnlyRows(n) if rows * n == shape.global_batch else None
     batch = {k: torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device="meta")
              for k, t in inputs.items() if k in ("tokens", "frontend")}
     counter = FlopCounterMode(display=False)
@@ -361,39 +392,50 @@ def _split_serve_flops(spec: ModelSpec, shape: ShapeConfig, mesh: Mapping[str, i
             "use_weight_peak_bytes": weights.peak}
 
 
-def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float = DEVICE_BYTES) -> Dict[str, Any]:
+def count_cell(arch: str, shape_name: str, mesh_kind: str, device_bytes: float = DEVICE_BYTES,
+               layout: str = "default") -> Dict[str, Any]:
     mesh = production_mesh_shape(multi_pod=(mesh_kind == "multi"))
     t0 = time.time()
-    rec: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": mesh, "n_devices": math.prod(mesh.values()),
-                           **cell_bytes(arch, shape_name, mesh)}
+    rec: Dict[str, Any] = {"arch": arch, "shape": shape_name, "layout": layout, "mesh": mesh,
+                           "n_devices": math.prod(mesh.values()), **cell_bytes(arch, shape_name, mesh, layout=layout)}
     rec["device"] = DEVICE_NAME if device_bytes == DEVICE_BYTES else "--device-bytes"
     rec["device_bytes"] = device_bytes
     rec["fits"] = rec["total_bytes"] <= device_bytes
     rec["fits_counts"] = ("state + inputs + cache + gathered params (the largest layer's and the outside "
                           "leaves' gathered weights) + a train cell's fp32 gradient shard; not activations")
-    rec.update(cell_flops(get_config(arch), SHAPES[shape_name], mesh))
+    rec.update(cell_flops(get_config(arch), SHAPES[shape_name], mesh, layout=layout))
     rec["count_s"] = round(time.time() - t0, 2)
     return rec
 
 
+def cell_path(outdir: Path, arch: str, shape_name: str, mesh_kind: str, layout: str = "default") -> Path:
+    """Where ``run_cell`` keeps a cell's record: "default"'s under
+    ``<outdir>/<mesh_kind>/``, another layout's under
+    ``<outdir>/<layout>/<mesh_kind>/`` (a record is never read back for
+    another layout)."""
+    return (outdir if layout == "default" else outdir / layout) / mesh_kind / f"{arch}__{shape_name}.json"
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: Path, force=False,
-             device_bytes: float = DEVICE_BYTES) -> Dict:
+             device_bytes: float = DEVICE_BYTES, layout: str = "default") -> Dict:
+    layout_rules(layout)  # the name's check, before a path is made of it
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    path = outdir / mesh_kind / f"{arch}__{shape_name}.json"
+    path = cell_path(outdir, arch, shape_name, mesh_kind, layout)
     path.parent.mkdir(parents=True, exist_ok=True)
     if path.exists() and not force:
         return json.loads(path.read_text())
     applicable, why = shape_applicable(cfg, shape)
     if not applicable:
-        rec = {"arch": arch, "shape": shape_name, "mesh_kind": mesh_kind, "skipped": True, "reason": why}
+        rec = {"arch": arch, "shape": shape_name, "layout": layout, "mesh_kind": mesh_kind, "skipped": True,
+               "reason": why}
         path.write_text(json.dumps(rec, indent=2))
         return rec
     try:
-        rec = count_cell(arch, shape_name, mesh_kind, device_bytes)
+        rec = count_cell(arch, shape_name, mesh_kind, device_bytes, layout)
         rec["ok"] = True
     except Exception as e:  # a failed cell is recorded and the run goes on, as in JAX's dry run
-        rec = {"arch": arch, "shape": shape_name, "ok": False, "error": f"{type(e).__name__}: {e}"}
+        rec = {"arch": arch, "shape": shape_name, "layout": layout, "ok": False, "error": f"{type(e).__name__}: {e}"}
     rec["mesh_kind"] = mesh_kind
     path.write_text(json.dumps(rec, indent=2))
     return rec
@@ -409,7 +451,12 @@ def main() -> None:
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--device-bytes", type=float, default=DEVICE_BYTES,
                     help=f"memory of one device (default {DEVICE_BYTES:.0e}: one {DEVICE_NAME})")
+    ap.add_argument("--layout", choices=list(LAYOUTS), default=None,
+                    help="JAX's layout profile (default: $REPRO_LAYOUT, else default)")
     args = ap.parse_args()
+    layout = args.layout or os.environ.get("REPRO_LAYOUT", "default")
+    if layout not in LAYOUTS:
+        ap.error(f"REPRO_LAYOUT={layout!r}: not one of {LAYOUTS}")
     outdir = Path(args.out)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.all:
@@ -423,7 +470,7 @@ def main() -> None:
     for mesh_kind in meshes:
         for a, s in cells:
             t0 = time.time()
-            rec = run_cell(a, s, mesh_kind, outdir, force=args.force, device_bytes=args.device_bytes)
+            rec = run_cell(a, s, mesh_kind, outdir, force=args.force, device_bytes=args.device_bytes, layout=layout)
             dt = time.time() - t0
             if rec.get("skipped"):
                 tag, n_skip = "SKIP", n_skip + 1

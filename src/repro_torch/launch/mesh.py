@@ -46,26 +46,33 @@ def make_host_mesh(device_type: str = "cuda"):
     return init_device_mesh(device_type, (1, 1), mesh_dim_names=("data", "model"))
 
 
-def dp_size(mesh) -> int:
+def dp_size(mesh, axes: Tuple[str, ...] = DATA_AXES) -> int:
+    """The number of ranks along ``axes`` (default: the data-parallel axes,
+    as JAX's microbatch count takes it in every layout; a layout's batch
+    axes, ``sharding.layout_batch_axes``, give its row count)."""
     shape = mesh_shape(mesh)
-    return math.prod(shape[a] for a in DATA_AXES if a in shape)
+    return math.prod(shape[a] for a in axes if a in shape)
 
 
-def dp_index(mesh) -> int:
-    """This rank's position among the data-parallel ranks: its coordinate
-    on ("pod", "data"), pod major (the order of ``batch_spec``'s rows)."""
+def dp_index(mesh, axes: Tuple[str, ...] = DATA_AXES) -> int:
+    """This rank's position among the ranks along ``axes``: its coordinate
+    on them, the first major (the order of the batch spec's rows; default
+    ("pod", "data"))."""
     shape, coord = mesh_shape(mesh), mesh_coordinate(mesh)
     index = 0
-    for a in DATA_AXES:
+    for a in axes:
         if a in shape:
             index = index * shape[a] + coord[a]
     return index
 
 
-def dp_group(mesh):
-    """The process group of this rank's data-parallel ranks (the same
-    "model" coordinate), its group ranks in ``dp_index`` order."""
-    axes = tuple(a for a in DATA_AXES if a in mesh_shape(mesh))
+def dp_group(mesh, axes: Tuple[str, ...] = DATA_AXES):
+    """The process group of the ranks along ``axes`` that share this rank's
+    other coordinates, its group ranks in ``dp_index`` order (None where
+    the mesh has none of ``axes``). ``axes`` follow the mesh's order."""
+    axes = tuple(a for a in axes if a in mesh_shape(mesh))
+    if not axes:
+        return None
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     return mesh[axes]._flatten().get_group()

@@ -11,6 +11,15 @@ the prefill and decode steps of every family serve in JAX's layout (params
 by ``sharding.shard_params``, the decode cache by ``decode_cache(mesh=)``);
 the dry run counts their bodies (``prefill_local``, ``decode_local``) on
 meta.
+
+Every sharded step takes JAX's layout profile (``layout``: "default",
+"tp_only" or "dp", ``sharding.LAYOUTS``); the state or params must be
+placed by that profile's rules (``sharding.layout_rules``). Under "dp" the
+rows split over ("data", "model") (every rank computes all of them where
+those do not divide a microbatch), nothing splits over "model" in the
+compute, the gradient is the mean over the distinct rows (the pods of a
+multi-pod mesh hold the same rows), and a decode cache holds the rank's
+rows with the sequence whole (``sharding.layout_cache_pspec``).
 """
 from __future__ import annotations
 
@@ -36,25 +45,30 @@ Tensors = Dict[str, torch.Tensor]
 SPLIT_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 
 
-def _model_parallel(mesh) -> Optional[ModelParallel]:
-    """This rank's place on the mesh's "model" axis (None with one rank)."""
+def _model_parallel(mesh, layout: str = "default") -> Optional[ModelParallel]:
+    """This rank's place on the mesh's "model" axis (None with one rank, or
+    under "dp", whose compute splits nothing over it)."""
     m = model_size(mesh)
-    return ModelParallel(model_group(mesh), m, model_index(mesh)) if m > 1 else None
+    return ModelParallel(model_group(mesh), m, model_index(mesh)) if m > 1 and layout != "dp" else None
 
 
-def compute_layout(spec: ModelSpec, mesh, params, cache=None) -> layers.Split:
+def compute_layout(spec: ModelSpec, mesh, params, cache=None, layout: str = "default",
+                   rows_split: bool = True) -> layers.Split:
     """The split compute layout (``layers.split_compute``) of ``params`` on
     ``mesh``, read from their placements (and a decode cache's, from
     ``cache``'s): each leaf's spec for one layer, the FSDP gather over
-    "data" and the "model" axis."""
+    "data", the gradient's sum over the ranks of ``layout``'s batch axes
+    (none where the rows are not split: ``rows_split`` False, every rank
+    computing every row) and the "model" axis."""
     sizes, coord = sharding.mesh_shape(mesh), sharding.mesh_coordinate(mesh)
     stacked = {name for name, leaf in flat_leaves(spec.schema()) if leaf.axes[0] == "layers"}
     specs = {n: sharding.spec_of(p) for n, p in params.items()}
-    weights = DataParallelWeights(data_group(mesh), sizes.get("data", 1), coord.get("data", 0), dp_group(mesh),
-                                  dp_size(mesh))
+    axes = sharding.layout_batch_axes(layout, mesh)
+    rows = (dp_group(mesh, axes), dp_size(mesh, axes)) if rows_split else (None, 1)
+    weights = DataParallelWeights(data_group(mesh), sizes.get("data", 1), coord.get("data", 0), *rows)
     caches = None if cache is None else {k: sharding.spec_of(v) for k, v in cache.items() if isinstance(v, torch.Tensor)}
-    return layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights, _model_parallel(mesh),
-                        caches)
+    return layers.Split({n: s[1:] if n in stacked else s for n, s in specs.items()}, weights,
+                        _model_parallel(mesh, layout), caches)
 
 
 def make_train_state(spec: ModelSpec, generator: torch.Generator, compress: bool = False, device="cuda"):
@@ -99,7 +113,8 @@ def shard_train_state(spec: ModelSpec, state: Dict[str, Any], mesh, rules=None) 
     return out
 
 
-def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, mesh=None) -> Callable:
+def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, mesh=None,
+                     layout: str = "default") -> Callable:
     """Returns train_step(state, batch) -> (state, metrics), updating the
     state IN PLACE (JAX returns a new one). The global batch is split into
     ``accum_steps`` microbatches of consecutive rows (JAX's reshape); each
@@ -122,14 +137,19 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
         (``layers.use_weight``), leaving its "model" shard: Megatron TP for
         heads (attention's and the recurrences'), ffn and vocab, EP for the
         experts;
-    (b) takes this rank's rows of each microbatch by ``batch_spec``: block
-        ``dp_index`` of the microbatch's rows (every rank is given the whole
-        global batch; ranks with one data coordinate take the same rows);
+    (b) takes this rank's rows of each microbatch by ``layout``'s batch
+        spec (``sharding.layout_batch_spec``): its block of the microbatch's
+        rows over the batch axes (every rank is given the whole global
+        batch; ranks with one coordinate on those axes take the same rows).
+        Under "dp", where those axes do not divide the microbatch, every
+        rank takes every row (``filter_spec_for_mesh`` replicates them), and
+        nothing is summed over ranks;
     (c) runs the accumulation on them, plain tensors all the way down (the
         kernels see no DTensor), with the MoE routing over the global
         microbatch (``layers.data_parallel_rows``);
-    (d) sums the gradient over the data-parallel ranks and divides by their
-        count (the global-batch mean); each rank keeps its shard, as the
+    (d) sums the gradient over the batch axes' ranks and divides by their
+        count (the mean over the distinct rows); each rank keeps its shard,
+        as the
         leaf's placements say: the gather's backward sums each microbatch's
         bf16 gradient over the data-parallel ranks into the rank's shard
         (GSPMD's reduce-scatter, in the param dtype; a weight used several
@@ -140,6 +160,12 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
         that counts each element once (a shard's sum of squares from its
         first replica only);
     (f) returns global metrics: the loss is the mean over every rank's rows.
+
+    ``layout`` is JAX's profile (``sharding.LAYOUTS``; the state placed by
+    its ``layout_rules``): "tp_only" changes the rules alone; "dp" has no
+    "model" split in the compute (no TP collective), the rows over ("data",
+    "model"), and its gradient reduced over those ranks alone (a multi-pod
+    mesh's pods hold the same rows and compute the same sum).
 
     Without a mesh the same body runs with every part whole: the rows are
     the batch, the gather and the reductions are the identity, and a leaf's
@@ -165,13 +191,12 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
         return g_sum, loss_sum / accum_steps
 
     if mesh is None:
-        dp, index, group, rows, sizes, coord = 1, 0, None, None, {}, {}
+        place, sizes, coord = None, {}, {}
     else:
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh spans {mesh.size()} of {dist.get_world_size()} processes; the step reduces "
                              "the int8 scale and the clip norm over every process, so the mesh must span them all")
-        dp, index, group = dp_size(mesh), dp_index(mesh), dp_group(mesh)
-        rows, sizes, coord = DataParallelRows(group), sharding.mesh_shape(mesh), sharding.mesh_coordinate(mesh)
+        place, sizes, coord = _Rows(mesh, layout), sharding.mesh_shape(mesh), sharding.mesh_coordinate(mesh)
 
     def reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, over=None) -> torch.Tensor:
         """All-reduce ``t`` in place over ``over`` (default: every process,
@@ -182,22 +207,27 @@ def build_train_step(spec: ModelSpec, optim: OptimConfig, accum_steps: int = 1, 
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         B = batch["tokens"].shape[0]
-        if B % accum_steps or (B // accum_steps) % dp:
+        dp = 1 if place is None else place.size
+        if B % accum_steps or ((B // accum_steps) % dp and layout != "dp"):
             raise ValueError(f"global batch {B} does not split into {accum_steps} microbatches over {dp} data ranks")
         mb = B // accum_steps
-        n = mb // dp
-        own = {k: torch.cat([v[i * mb + index * n:i * mb + (index + 1) * n] for i in range(accum_steps)])
-               for k, v in batch.items()}
+        own_rows, rows = slice(0, mb), None
+        if place is not None:
+            own_rows, rows = place.rows(mb)
+        dp = 1 if rows is None else dp  # every rank computes every row: nothing to sum over ranks
+        own = {k: torch.cat([v[i * mb:(i + 1) * mb][own_rows] for i in range(accum_steps)]) for k, v in batch.items()}
         params = state["params"]
         specs = {name: sharding.spec_of(p) for name, p in params.items()}
         local = {name: sharding.local(p).detach().requires_grad_(True) for name, p in params.items()}
-        layout = None if mesh is None else compute_layout(spec, mesh, params)
-        with layers.data_parallel_rows(rows), layers.split_compute(layout):
+        layout_ = None if mesh is None else compute_layout(spec, mesh, params, layout=layout,
+                                                           rows_split=rows is not None)
+        with layers.data_parallel_rows(rows), layers.split_compute(layout_):
             grads, loss = grads_and_loss(local, own)
         del local
         for g in grads.values():  # each a sum of this rank's shards over the data-parallel ranks
             g.div_(dp)
-        loss = reduce(loss, over=group) / dp
+        if rows is not None:
+            loss = reduce(loss, over=place.group) / dp
         shards = lambda leaves: {name: sharding.local(t) for name, t in leaves.items()}  # noqa: E731
         if optim.compress_grads:
             residual = shards(state["residual"])
@@ -245,26 +275,27 @@ def decode_local(spec: ModelSpec, params: Tensors, cache, tokens: torch.Tensor, 
     return greedy(logits, dense.logits_split(spec.cfg), rows), cache
 
 
-class _Serving:
-    """A sharded serving step's place on ``mesh``: this rank's rows of the
-    global batch (block ``dp_index``, as ``build_train_step`` takes them, or
-    every row where the data-parallel ranks do not divide the batch, as
-    ``filter_spec_for_mesh`` replicates it)."""
+class _Rows:
+    """A sharded step's rows on ``mesh`` under ``layout``: this rank's block
+    of a batch over the layout's batch axes (``dp_index`` over them), or
+    every row where those ranks do not divide the batch, as
+    ``filter_spec_for_mesh`` replicates it."""
 
-    def __init__(self, mesh):
-        self.dp, self.index = dp_size(mesh), dp_index(mesh)
-        self.group = dp_group(mesh)
+    def __init__(self, mesh, layout: str = "default"):
+        axes = sharding.layout_batch_axes(layout, mesh)
+        self.size, self.index, self.group = dp_size(mesh, axes), dp_index(mesh, axes), dp_group(mesh, axes)
 
     def rows(self, batch: int):
-        """(this rank's slice of the global rows, the data-parallel ranks
-        to gather the next tokens over: None where each holds every row)."""
-        if batch % self.dp:
+        """(this rank's slice of the global rows, the ranks to gather the
+        rows' results over: None where each holds every row)."""
+        if batch % self.size:
             return slice(0, batch), None
-        n = batch // self.dp
+        n = batch // self.size
         return slice(self.index * n, (self.index + 1) * n), DataParallelRows(self.group)
 
 
-def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max_len: int, device="cuda", mesh=None):
+def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max_len: int, device="cuda", mesh=None,
+                 layout: str = "default"):
     """``spec.init_cache(batch, max_len)`` holding ``prefill_cache`` in the
     leading slice of each entry, zeros after it (how JAX's
     ``tests/test_system.py::test_prefill_decode`` hands a prefill to
@@ -280,7 +311,9 @@ def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max
     ``length`` as the prefill's. ``prefill_cache`` is the sharded
     prefill's (this rank's rows; the entries its ``heads`` names hold the
     rank's heads, gathered over "model" here by
-    ``ModelParallel.gather_heads``). ``device`` is then the mesh's."""
+    ``ModelParallel.gather_heads``). ``device`` is then the mesh's. Under
+    ``layout`` "dp" each entry holds the rank's rows and every position
+    (``sharding.layout_cache_pspec``)."""
     if mesh is None:
         dc = spec.init_cache(batch, max_len, device=device)
         for key, v in prefill_cache.items():
@@ -290,8 +323,9 @@ def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max
         return dc
     from torch.distributed.tensor import DTensor
 
-    tp = _model_parallel(mesh)
-    heads, pspecs, shapes = prefill_cache.get("heads", {}), spec.cache_pspec(), spec.cache_specs(batch, max_len)
+    tp = _model_parallel(mesh, layout)
+    heads, shapes = prefill_cache.get("heads", {}), spec.cache_specs(batch, max_len)
+    pspecs = sharding.layout_cache_pspec(layout, spec.cache_pspec())
     out = {"length": prefill_cache["length"]}
     for key, part in prefill_cache.items():
         if key in ("length", "heads"):
@@ -312,7 +346,7 @@ def decode_cache(spec: ModelSpec, prefill_cache: Dict[str, Any], batch: int, max
     return out
 
 
-def build_prefill_step(spec: ModelSpec, mesh=None) -> Callable:
+def build_prefill_step(spec: ModelSpec, mesh=None, layout: str = "default") -> Callable:
     """prefill_step(params, tokens, frontend=None) -> (next token (B, 1)
     int32, cache).
 
@@ -326,24 +360,27 @@ def build_prefill_step(spec: ModelSpec, mesh=None) -> Callable:
     routing over the global rows. Every rank returns the global batch's next
     tokens (JAX's value) and its own cache: its rows, its route's heads
     where the family computes the entry by heads (``decode_cache(mesh=)``
-    places them). A 1 x 1 mesh is the unsharded step bit for bit."""
+    places them). ``layout``: JAX's profile (the params placed by its
+    rules): its batch axes give the rows, and "dp" splits nothing over
+    "model". A 1 x 1 mesh is the unsharded step bit for bit."""
     if mesh is None:
         def prefill_step(params, tokens, frontend=None):
             return prefill_local(spec, params, tokens, frontend)
 
         return prefill_step
-    serving = _Serving(mesh)
+    serving = _Rows(mesh, layout)
 
     def sharded_prefill_step(params, tokens, frontend=None):
         own, rows = serving.rows(tokens.shape[0])
         local = {n: sharding.local(p) for n, p in params.items()}
-        with torch.no_grad(), layers.data_parallel_rows(rows), layers.split_compute(compute_layout(spec, mesh, params)):
+        with torch.no_grad(), layers.data_parallel_rows(rows), \
+                layers.split_compute(compute_layout(spec, mesh, params, layout=layout)):
             return prefill_local(spec, local, tokens[own], None if frontend is None else frontend[own], rows)
 
     return sharded_prefill_step
 
 
-def build_serve_step(spec: ModelSpec, mesh=None) -> Callable:
+def build_serve_step(spec: ModelSpec, mesh=None, layout: str = "default") -> Callable:
     """serve_step(params, cache, tokens (B, 1), pos) -> (next token (B, 1)
     int32, cache): one greedy decode step against the KV/state cache.
 
@@ -353,21 +390,21 @@ def build_serve_step(spec: ModelSpec, mesh=None) -> Callable:
     ``pos``, attention combined over the chunks; rwkv6's WKV state by the
     rank's heads; the token shifts and Mamba2's conv and SSM states whole,
     the same on every rank), ``tokens`` the global batch's, the compute as
-    ``build_prefill_step``'s; every rank returns the global batch's next
-    tokens."""
+    ``build_prefill_step``'s, in ``layout``; every rank returns the global
+    batch's next tokens."""
     if mesh is None:
         def serve_step(params, cache, tokens, pos: int):
             return decode_local(spec, params, cache, tokens, pos)
 
         return serve_step
-    serving = _Serving(mesh)
+    serving = _Rows(mesh, layout)
 
     def sharded_serve_step(params, cache, tokens, pos: int):
         own, rows = serving.rows(tokens.shape[0])
         local = {n: sharding.local(p) for n, p in params.items()}
         shard = {k: sharding.local(v) if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
         with torch.no_grad(), layers.data_parallel_rows(rows), \
-                layers.split_compute(compute_layout(spec, mesh, params, cache)):
+                layers.split_compute(compute_layout(spec, mesh, params, cache, layout)):
             nxt, shard = decode_local(spec, local, shard, tokens[own], pos, rows)
         cache["length"] = shard["length"]
         return nxt, cache

@@ -22,7 +22,8 @@ a timeout of ``torch_step_rules.RUN_TIMEOUT`` seconds.
   this case held the step that gathered the whole model), each step
   against JAX's step;
 - a 1 x 1 mesh equals the unsharded step bit for bit, and so do the
-  sharded prefill and decode steps (one arch of each family);
+  sharded prefill and decode steps (one arch of each family; and in JAX's
+  "tp_only" and "dp" layout profiles);
 - elastic restore: saved on (2, 4), restored on (1, 1) and on (4, 2), the
   leaves equal, the next step equal.
 """
@@ -260,18 +261,22 @@ def test_whole_gather_family_on_2x2_matches_jax(tmp_path):
                         quant_steps(out, k, states[k]["params"]), mu_tol=mu_tol)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b", "whisper-base", "rwkv6-3b",
-                                  "zamba2-7b"])
-def test_1x1_mesh_is_the_unsharded_step_bit_for_bit(tmp_path, arch):
+@pytest.mark.parametrize("arch,layout", [
+    pytest.param(arch, "default", id=arch) for arch in ("qwen3-1.7b", "olmoe-1b-7b", "llava-next-34b", "whisper-base",
+                                                         "rwkv6-3b", "zamba2-7b")
+] + [pytest.param(arch, layout, id=f"{arch}-{layout}") for arch, layout in (
+    ("qwen3-1.7b", "dp"), ("qwen3-1.7b", "tp_only"), ("olmoe-1b-7b", "dp"), ("whisper-base", "dp"), ("zamba2-7b", "dp"),
+    ("smollm-135m", "dp"))])
+def test_1x1_mesh_is_the_unsharded_step_bit_for_bit(tmp_path, arch, layout):
     """One arch of each family (dense, moe, vlm with its frontend rows,
-    encdec with its frame rows, rwkv6, zamba2): on 1 x 1 every gather is a
-    view and every op the unsharded one. The trained params then serve a
-    prompt (4 rows of 32 tokens, 4 new) through the sharded prefill and
-    decode steps and through the unsharded ones: tokens, logits and every
-    cache entry bit-equal."""
+    encdec with its frame rows, rwkv6, zamba2), and a few in JAX's "dp" and
+    "tp_only" layout profiles: on 1 x 1 every gather is a view and every op
+    the unsharded one. The trained params then serve a prompt (4 rows of 32
+    tokens, 4 new) through the sharded prefill and decode steps and through
+    the unsharded ones: tokens, logits and every cache entry bit-equal."""
     pair, _ = start(tmp_path, arch, True, QWEN_TOKENS)
     extra = with_frontend(tmp_path, pair.spec.cfg, QWEN_TOKENS)
-    out = run_ranks(tmp_path, "run", 1, arch=arch, mesh=[1, 1], axes=["data", "model"], accum=2, lr=LR,
+    out = run_ranks(tmp_path, "run", 1, arch=arch, mesh=[1, 1], axes=["data", "model"], rules=layout, accum=2, lr=LR,
                     compress=True, steps=2, ckpt_in=str(tmp_path / "ckpt_in"), step_in=0,
                     batch=str(tmp_path / "batch.npy"), ckpt_out=str(tmp_path / "ckpt_out"), save_after=[2],
                     unsharded=True, serve_check=True, **extra)

@@ -1,12 +1,14 @@
 """The port's dry run (``repro_torch/launch/dryrun.py``) against the JAX
 package's layout, on the meta device with no process group:
 
-- every arch x shape x mesh cell: the skip list is JAX's
-  ``shape_applicable``; the per-device bytes of params, opt (mu, nu, master
-  and the int32 step), residual, inputs and a decode cell's cache equal
-  those computed here from JAX's ``param_specs``, ``abstract_train_state``,
-  ``input_specs``, ``batch_spec``, ``cache_pspec`` and
-  ``filter_spec_for_mesh`` on the same fake mesh;
+- every arch x shape x mesh cell, in each layout profile: the skip list
+  is JAX's ``shape_applicable``; the per-device bytes of params, opt (mu,
+  nu, master and the int32 step), residual, inputs and a decode cell's
+  cache equal those computed here from JAX's ``param_specs``,
+  ``abstract_train_state``, ``input_specs``, ``batch_spec``, ``cache_pspec``
+  and ``filter_spec_for_mesh`` on the same fake mesh, with the rules and
+  batch spec JAX's dry run builds for the layout (a "dp" decode cache: see
+  ``jax_cell_bytes``);
 - ``ModelSpec.input_specs`` / ``cache_specs`` / ``cache_pspec`` equal JAX's;
 - the FLOPs counted on meta equal those counted on a real CPU run of the
   same reduced arch and shape;
@@ -76,9 +78,38 @@ def _local_bytes(sds, spec, mesh) -> int:
     return n * np.dtype(sds.dtype).itemsize
 
 
-def jax_cell_bytes(arch, shape_name, mesh):
+def jax_layout(layout, fake):
+    """(rules, batch spec) as JAX's dry run builds them for ``layout``
+    (``repro/launch/dryrun.py:145-164``)."""
+    if layout == "dp":
+        return {k: None for k in ("layers", "vocab", "embed", "heads", "kv", "ffn", "inner", "experts")}, \
+            JP(("data", "model"))
+    if layout == "tp_only":
+        return dict(jax_sharding.DEFAULT_RULES, embed=None), jax_sharding.batch_spec(fake)
+    return None, jax_sharding.batch_spec(fake)
+
+
+def dp_cache_spec(spec):
+    """A JAX ``cache_pspec`` entry as the port's "dp" cache holds it: the
+    batch marker ("pod", "data") over "dp"'s batch axes ("data", "model"),
+    "model" dropped (the sequence whole), as JAX's ``shard_hint`` resolves
+    them under ``REPRO_BATCH_AXES=data,model REPRO_MODEL_HINTS=0``. JAX's
+    dry run places the cache by ``cache_pspec`` beside the "dp" batch and
+    GSPMD reshards between the two; the port computes on the rows it holds,
+    so its cache is compared to this spec instead (ROADMAP.md §3)."""
+    def entry(e):
+        names = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        if names == ("pod", "data"):
+            return ("data", "model")
+        return None if "model" in names else e
+
+    return JP(*(entry(e) for e in spec))
+
+
+def jax_cell_bytes(arch, shape_name, mesh, layout="default"):
     jspec, fake, shape = JaxSpec(jax_get_config(arch)), _FakeMesh(mesh), JAX_SHAPES[shape_name]
-    specs = dict(_jax_flat(jax_sharding.param_specs(jspec.schema(), fake)))
+    rules, bspec = jax_layout(layout, fake)
+    specs = dict(_jax_flat(jax_sharding.param_specs(jspec.schema(), fake, rules)))
     state = jax_abstract_train_state(jspec, compress=True)
     per = lambda tree: sum(_local_bytes(s, specs[n], mesh) for n, s in _jax_flat(tree))  # noqa: E731
     opt = state["opt"]
@@ -87,33 +118,37 @@ def jax_cell_bytes(arch, shape_name, mesh):
         out["opt"] = per(opt.mu) + per(opt.nu) + per(opt.master) + np.dtype(opt.step.dtype).itemsize
     inputs = dict(jspec.input_specs(shape))
     cache = inputs.pop("cache", None)
-    bspec = jax_sharding.batch_spec(fake)
     out["inputs"] = sum(
         _local_bytes(s, jax_sharding.filter_spec_for_mesh(JP(*([bspec[0]] + [None] * (len(s.shape) - 1))), fake,
                                                           s.shape), mesh) if s.shape else np.dtype(s.dtype).itemsize
         for s in inputs.values())
     if cache is not None:
-        cspec = jspec.cache_pspec()
+        cspec = {k: dp_cache_spec(v) if layout == "dp" else v for k, v in jspec.cache_pspec().items()}
         out["cache"] = sum(_local_bytes(s, jax_sharding.filter_spec_for_mesh(cspec[k], fake, s.shape), mesh)
                            for k, s in cache.items())
     out["state"] = out["params"] + out["opt"]
     return out
 
 
-@pytest.mark.parametrize("mesh_kind", list(MESHES))
-def test_every_cell_bytes_and_skips_equal_jax(tmp_path, mesh_kind):
-    """Each cell JAX's ``shape_applicable`` skips is written as skipped;
-    every other cell's byte columns equal JAX's."""
+@pytest.mark.parametrize("mesh_kind,layout", [
+    pytest.param(kind, layout, id=kind if layout == "default" else f"{kind}-{layout}")
+    for layout in ("default", "tp_only", "dp") for kind in MESHES])
+def test_every_cell_bytes_and_skips_equal_jax(tmp_path, mesh_kind, layout):
+    """Each cell JAX's ``shape_applicable`` skips is written as skipped (a
+    non-default layout's under its own directory); every other cell's byte
+    columns equal JAX's in ``layout``. "dp" gathers nothing, and "tp_only"
+    nothing over "data"."""
     mesh = MESHES[mesh_kind]
+    out = tmp_path if layout == "default" else tmp_path / layout
     for arch in configs.ARCH_IDS:
         for shape_name in configs.SHAPES:
             if not configs.shape_applicable(configs.get_config(arch), configs.SHAPES[shape_name])[0]:
-                rec = dryrun.run_cell(arch, shape_name, mesh_kind, tmp_path)
-                assert rec["skipped"] and rec["reason"], (arch, shape_name)
-                assert (tmp_path / mesh_kind / f"{arch}__{shape_name}.json").exists()
+                rec = dryrun.run_cell(arch, shape_name, mesh_kind, tmp_path, layout=layout)
+                assert rec["skipped"] and rec["reason"] and rec["layout"] == layout, (arch, shape_name)
+                assert (out / mesh_kind / f"{arch}__{shape_name}.json").exists()
                 continue
-            rec = dryrun.cell_bytes(arch, shape_name, mesh)
-            assert rec["bytes"] == jax_cell_bytes(arch, shape_name, mesh), (arch, shape_name)
+            rec = dryrun.cell_bytes(arch, shape_name, mesh, layout=layout)
+            assert rec["bytes"] == jax_cell_bytes(arch, shape_name, mesh, layout), (arch, shape_name)
             cfg = configs.get_config(arch)
             whole = ModelSpec(cfg).param_count()
             # every family's split train step and sharded prefill and decode steps: at most
@@ -122,12 +157,14 @@ def test_every_cell_bytes_and_skips_equal_jax(tmp_path, mesh_kind):
             outside = sum(math.prod(leaf.shape) for n, leaf in flat_leaves(ModelSpec(cfg).schema())
                           if leaf.axes[0] != "layers")
             one_layer = (whole - outside) // cfg.n_layers
-            assert 0 < rec["port_step_bytes"]["gathered_params"] <= 2 * (one_layer + outside), (arch, shape_name)
+            gathered = rec["port_step_bytes"]["gathered_params"]
+            assert gathered <= 2 * (one_layer + outside), (arch, shape_name)
+            assert gathered > 0 if layout == "default" else (gathered == 0 or layout == "tp_only"), (arch, shape_name)
             if configs.SHAPES[shape_name].kind == "train":
                 assert rec["port_step_bytes"]["grad_sum"] == rec["bytes"]["residual"]
             else:
                 assert "grad_sum" not in rec["port_step_bytes"]
-    skipped = {(r.stem.split("__")[0], r.stem.split("__")[1]) for r in (tmp_path / mesh_kind).glob("*.json")}
+    skipped = {(r.stem.split("__")[0], r.stem.split("__")[1]) for r in (out / mesh_kind).glob("*.json")}
     assert skipped == {(a, s) for a in configs.ARCH_IDS for s, shape in JAX_SHAPES.items()
                        if not jax_shape_applicable(jax_get_config(a), shape)[0]}
 
@@ -329,6 +366,33 @@ def test_cli_writes_a_cell(tmp_path):
     assert rec["device"] == "NVIDIA H100 80GB HBM3" and rec["fits"] is (rec["total_bytes"] <= 80e9) is True
     assert rec["mesh"] == {"pod": 2, "data": 16, "model": 16}
     assert set(rec["bytes"]) == {"params", "opt", "residual", "inputs", "cache", "state"}
+
+
+def test_cli_layout_flag_and_env(tmp_path):
+    """``--layout dp`` writes its record under ``<out>/dp/``, with
+    ``"layout"``; ``REPRO_LAYOUT=dp`` without the flag writes the same
+    record; the "default" record of the same cell stays where it was and
+    is never read back for "dp"."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_LAYOUT", None)
+    cell = ["--arch", "smollm-135m", "--shape", "prefill_32k", "--mesh", "single"]
+    recs = {}
+    for name, extra, extra_env in (("default", [], {}), ("flag", ["--layout", "dp"], {}),
+                                   ("env", [], {"REPRO_LAYOUT": "dp"})):
+        out = tmp_path / name
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *cell, *extra, "--out", str(out)],
+                             env=dict(env, **extra_env), capture_output=True, text=True, timeout=240)
+        assert res.returncode == 0 and "done: ok=1 fail=0 skip=0" in res.stdout, res.stderr
+        sub = out if name == "default" else out / "dp"
+        recs[name] = json.loads((sub / "single" / "smollm-135m__prefill_32k.json").read_text())
+        recs[name].pop("count_s")
+    assert recs["flag"] == recs["env"] and recs["flag"]["layout"] == "dp" and recs["default"]["layout"] == "default"
+    assert recs["flag"]["collective_bytes"]["model"] == 0 < recs["default"]["collective_bytes"]["model"]
+    # 32 rows: 2 a device over "data", and all 32 under "dp" (256 devices do not divide them: replicated)
+    assert recs["flag"]["rows_per_device"] == 32 and recs["default"]["rows_per_device"] == 32 // 16
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *cell], env=dict(env, REPRO_LAYOUT="fsdp"),
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode != 0 and "REPRO_LAYOUT" in res.stderr
 
 
 def test_kernel_wrappers_choose_by_device_type():

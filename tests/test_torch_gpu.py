@@ -904,3 +904,46 @@ def test_sharded_serving_two_ranks_on_the_card(cuda, tmp_path):
     print(f"two ranks on the card: logits {gap:.4g} from the unsharded steps', largest token gap "
           f"{float(ties.max()):.4g}, cache {cache_gap:.4g}")
     assert gap <= 2e-2 and float(ties.max()) <= 2e-2 and cache_gap <= 3e-2
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "whisper-base"])
+def test_dp_layout_on_one_rank_nccl(cuda, arch):
+    """JAX's "dp" layout profile on a 1 x 1 mesh over a one-rank NCCL group
+    (the state placed by ``layout_rules("dp")``, the steps built with
+    ``layout="dp"``) equals the unsharded steps on the card bit for bit:
+    two train steps (metrics and every param), then a prompt of 4 rows of
+    40 tokens and 6 new served (tokens, logits, every cache entry)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import OptimConfig
+    from repro_torch.distributed.sharding import layout_rules, local, shard_params
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, make_train_state, shard_train_state
+    from torch_dist_worker import serve
+
+    _nccl_one_rank()
+    try:
+        mesh = make_host_mesh("cuda")
+        spec = ModelSpec(get_reduced(arch))
+        optim = OptimConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        state = make_train_state(spec, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        sharded = shard_train_state(spec, state, mesh, layout_rules("dp"))
+        batch = spec.smoke_batch(torch.Generator(device=cuda).manual_seed(1), batch=4, seq=64, device=cuda)
+        plain_step, dp_step = build_train_step(spec, optim, 2), build_train_step(spec, optim, 2, mesh=mesh, layout="dp")
+        for _ in range(2):
+            state, m = plain_step(state, batch)
+            sharded, ms = dp_step(sharded, batch)
+            assert {k: float(v) for k, v in ms.items()} == {k: float(v) for k, v in m.items()}
+        for n, t in state["params"].items():
+            assert torch.equal(local(sharded["params"][n]), t.detach()), n
+        params = {n: t.detach() for n, t in state["params"].items()}
+        serve_batch = spec.smoke_batch(torch.Generator(device=cuda).manual_seed(2), batch=4, seq=40, device=cuda)
+        got = serve(spec, mesh, shard_params(spec, params, mesh, layout_rules("dp")), serve_batch["tokens"],
+                    serve_batch.get("frontend"), 48, 6, layout="dp")
+        want = serve(spec, None, params, serve_batch["tokens"], serve_batch.get("frontend"), 48, 6)
+        assert torch.equal(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+        assert sorted(got[2]) == sorted(want[2])
+        for key in got[2]:
+            _bits_equal(got[2][key], want[2][key])
+    finally:
+        dist.destroy_process_group()

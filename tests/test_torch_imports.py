@@ -1,9 +1,9 @@
 """The port stands alone: importing every module of repro_torch (the
 encoder-decoder, RWKV6, Mamba2 and step-builder modules, the training
 path's optimizer, data, checkpoint and launcher modules, and the sharding,
-mesh and dry-run modules among them), and
-chip_smoke.py, pulls in neither JAX nor the JAX package nor ml_dtypes (the
-card's machine has none), and builds nothing."""
+mesh and dry-run modules among them), chip_smoke.py and the example twins
+(examples/*_torch.py), pulls in neither JAX nor the JAX package nor
+ml_dtypes (the card's machine has none), and builds nothing."""
 import os
 import subprocess
 import sys
@@ -18,6 +18,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "examples")
+for name in ("quickstart_torch", "serve_tiered_torch", "train_lm_torch"):
+    importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro.") or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 new = ["repro_torch.models.encdec", "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
@@ -35,7 +38,7 @@ def test_port_imports_no_jax_and_builds_nothing():
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     build_dir = ROOT / "src" / "repro_torch" / "_build"
     before = sorted(build_dir.glob("*")) if build_dir.exists() else []
-    res = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     n_modules, bad = res.stdout.split(maxsplit=1)
     assert int(n_modules) >= 20

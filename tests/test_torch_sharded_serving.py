@@ -39,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.distributed.sharding import filter_spec_for_mesh, local_shape
+from repro_torch.distributed.sharding import filter_spec_for_mesh, layout_cache_pspec, local_shape
 from repro_torch.launch.dryrun import split_gathered_bytes
 from repro_torch.launch.steps import decode_cache
 from repro_torch.models import layers
@@ -129,7 +129,7 @@ def check(tmp: Path, arch: str, mesh, prompt: int, max_len: int, rules: str = "d
     cfg = pair.cfg
     served = np.asarray(out["tokens"], np.int32)  # (B, 1 + NEW): the prefill's token, then each decode step's
     n = prompt + (cfg.n_frontend_tokens if fe is not None else 0)
-    chunk = max_len // mesh[1] if max_len % mesh[1] == 0 else max_len
+    chunk = max_len // mesh[1] if max_len % mesh[1] == 0 and rules != "dp" else max_len  # "dp": the sequence whole
     assert n // chunk != (n + NEW - 1) // chunk or mesh[1] == 1 or chunk == max_len, "decode crosses no chunk boundary"
     assert served.shape == (B, 1 + NEW) and logits.shape == (1 + NEW, B, cfg.vocab)
     assert np.array_equal(served, logits.argmax(-1).T), "the tokens are not the greedy tokens of the logits"
@@ -148,14 +148,16 @@ def check(tmp: Path, arch: str, mesh, prompt: int, max_len: int, rules: str = "d
     assert float(ties.max()) <= NEAR_TIE, ties
     if moe:
         assert out["drops"]["prefill"] + out["drops"]["decode"] == drops and sum(drops) > 0, (out["drops"], drops)
-    # each rank's cache is cache_pspec's local shape on the mesh
+    # each rank's cache is cache_pspec's local shape on the mesh (the layout's: under "dp" the rows over
+    # ("data", "model"), the sequence whole)
     axes = dict(zip(("data", "model"), mesh))
     shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    want_shape = local_shape(shape, filter_spec_for_mesh(pair.spec.cache_pspec()["k"], axes, shape), axes)
+    cspec = layout_cache_pspec(rules, pair.spec.cache_pspec())["k"]
+    want_shape = local_shape(shape, filter_spec_for_mesh(cspec, axes, shape), axes)
     assert [tuple(s["k"]) for s in out["local_cache_shapes"]] == [want_shape] * int(np.prod(mesh)), \
         out["local_cache_shapes"]
     # no rank gathers the whole model
-    bound = split_gathered_bytes(cfg, axes)
+    bound = split_gathered_bytes(cfg, axes, rules)
     fsdp = mesh[0] > 1 and rules == "default"
     assert out["gathered_peak"] <= bound and (out["gathered_peak"] > 0) == fsdp, (out["gathered_peak"], bound)
 

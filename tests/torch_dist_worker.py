@@ -5,7 +5,9 @@ repro_torch only, no JAX).
     python tests/torch_dist_worker.py CASE.json RANK WORLD PORT
 
 CASE.json: arch (reduced config; replace: fields of it replaced, as
-``reduced_config`` reads them), mesh and axes, device (optional, "cpu";
+``reduced_config`` reads them), mesh and axes, rules (optional: JAX's
+layout profile, "default", "tp_only" or "dp": the state placed by its
+rules, the steps built for it), device (optional, "cpu";
 "cuda": every rank on device 0, still over gloo), accum, lr, compress,
 steps, ckpt_in / step_in (the state to start from, restored onto the mesh
 by ``param_specs``), batch (an .npy of int32 tokens, the whole global batch
@@ -25,7 +27,9 @@ order. The split step also records the most weight bytes gathered over
 ``CountingWeights`` in place of the step's ``DataParallelWeights``), and
 every
 step the elements of the fp32 gradient sum AdamW is given against those of
-the rank's shards (``grad_elements``, ``shard_elements``). Rank 0's kernel
+the rank's shards (``grad_elements``, ``shard_elements``), and each rank's
+digest of its params' shards after the last step (``param_digests``, in
+rank order: equal where the layout replicates the params). Rank 0's kernel
 launches and routes (``repro_torch.kernels``) are recorded too. With
 ``serve_check`` (a 1 x 1 mesh with ``unsharded``), the trained state's
 params also serve a prompt through the sharded and the unsharded prefill
@@ -33,8 +37,8 @@ and decode steps (``serve`` below): ``serve_equal`` says whether tokens,
 logits and every cache entry agree bit for bit.
 
 CASE.json with ``serve`` (the sharded serving steps, no training): params
-(an .npz of the whole bf16 params as int16 bit patterns), rules (optional:
-"tp_only", JAX's serving layout without FSDP), tokens (an .npy (B, S) int32
+(an .npz of the whole bf16 params as int16 bit patterns), rules (as above;
+"tp_only" is JAX's serving layout without FSDP), tokens (an .npy (B, S) int32
 prompt, the global batch every rank is given), frontend (optional, as
 above), max_len, new (decode steps), routing (as above: "routing.npz" holds
 the prefill's and the decode's calls apart), flops (count rank 0's FLOPs
@@ -47,6 +51,7 @@ rank's local shape of each cache entry and the most weight bytes gathered
 over "data" alive at once.
 """
 import dataclasses
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -58,7 +63,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import OptimConfig, get_reduced
-from repro_torch.distributed.sharding import DEFAULT_RULES, gather, local, param_specs, shard_params, spec_of
+from repro_torch.distributed.sharding import LAYOUTS, gather, layout_rules, local, param_specs, shard_params, spec_of
 from repro_torch.kernels import launch_counts, route_counts
 from repro_torch.launch import steps
 from repro_torch.launch.dryrun import CountingWeights
@@ -67,7 +72,7 @@ from repro_torch.launch.steps import (abstract_train_state, build_prefill_step, 
 from repro_torch.models import layers
 from repro_torch.models.api import ModelSpec
 
-RULES = {"default": None, "tp_only": dict(DEFAULT_RULES, embed=None)}
+RULES = {name: layout_rules(name) for name in LAYOUTS}
 
 
 def reduced_config(case):
@@ -143,23 +148,23 @@ def recording_greedy(inner, into: list):
     return greedy
 
 
-def serve(spec, mesh, params, tokens, frontend, max_len: int, new: int, marks=None):
+def serve(spec, mesh, params, tokens, frontend, max_len: int, new: int, marks=None, layout: str = "default"):
     """The prompt ``tokens`` through the prefill step and ``new`` greedy
-    decode steps: sharded on ``mesh`` (params placed on it), or unsharded
-    where ``mesh`` is None. ``marks``: called with "decode" between the
+    decode steps: sharded on ``mesh`` (params placed on it by ``layout``'s
+    rules), or unsharded where ``mesh`` is None. ``marks``: called with "decode" between the
     prefill and the decode steps. Returns (next tokens (B, 1 + new), each
     step's whole logits (B, V), every cache entry whole, this rank's shape
     of each cache entry)."""
     logits, inner = [], steps.greedy
     steps.greedy = recording_greedy(inner, logits)
     try:
-        tok, cache = build_prefill_step(spec, mesh)(params, tokens, frontend)
+        tok, cache = build_prefill_step(spec, mesh, layout)(params, tokens, frontend)
         if marks is not None:
             marks("decode")
         n = cache["k"].shape[2] if "k" in cache else cache["length"]  # a vlm's frontend rows included
-        dc = decode_cache(spec, cache, tokens.shape[0], max_len, device=tokens.device, mesh=mesh)
+        dc = decode_cache(spec, cache, tokens.shape[0], max_len, device=tokens.device, mesh=mesh, layout=layout)
         del cache
-        step, out = build_serve_step(spec, mesh), [tok]
+        step, out = build_serve_step(spec, mesh, layout), [tok]
         for i in range(new):
             tok, dc = step(params, dc, tok, n + i)
             out.append(tok)
@@ -170,7 +175,7 @@ def serve(spec, mesh, params, tokens, frontend, max_len: int, new: int, marks=No
             {k: tuple(local(dc[k]).shape) for k in entries})
 
 
-def serve_check(spec, mesh, params, plain, batch, device) -> dict:
+def serve_check(spec, mesh, params, plain, batch, device, layout: str = "default") -> dict:
     """A prompt of the batch (4 rows of 32 tokens, 4 new) through the
     sharded steps on ``mesh`` and the unsharded steps on ``plain``: whether
     they agree bit for bit (tokens, logits and every cache entry)."""
@@ -178,7 +183,7 @@ def serve_check(spec, mesh, params, plain, batch, device) -> dict:
     if frontend is not None:  # an encdec's frames of the prompt (S // 4, within the cross cache's rows)
         frontend = frontend[:4] if spec.cfg.family != "encdec" else frontend[:4, :tokens.shape[1] // 4]
     max_len = (0 if frontend is None or spec.cfg.family != "vlm" else spec.cfg.n_frontend_tokens) + 40
-    got = serve(spec, mesh, params, tokens, frontend, max_len, 4)
+    got = serve(spec, mesh, params, tokens, frontend, max_len, 4, layout=layout)
     want = serve(spec, None, {n: p.detach() for n, p in plain.items()}, tokens, frontend, max_len, 4)
     same = torch.equal(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
     same = same and len(got[1]) == len(want[1]) and sorted(got[2]) == sorted(want[2])
@@ -191,7 +196,8 @@ def serving(case, rank: int, mesh, device, spec) -> None:
     mesh (see the module's docstring)."""
     saved = np.load(case["params"])
     whole = {n: torch.from_numpy(saved[n]).view(torch.bfloat16).to(device) for n in saved.files}
-    params = shard_params(spec, whole, mesh, RULES[case.get("rules", "default")])
+    layout = case.get("rules", "default")
+    params = shard_params(spec, whole, mesh, RULES[layout])
     del whole
     tokens = torch.from_numpy(np.load(case["tokens"])).to(device)
     frontend = None
@@ -211,10 +217,10 @@ def serving(case, rank: int, mesh, device, spec) -> None:
         B, S = tokens.shape
         counters = [FlopCounterMode(display=False) for _ in range(2)]
         with counters[0]:
-            tok, cache = build_prefill_step(spec, mesh)(params, tokens, frontend)
-        dc = decode_cache(spec, cache, B, S, device=device, mesh=mesh)
+            tok, cache = build_prefill_step(spec, mesh, layout)(params, tokens, frontend)
+        dc = decode_cache(spec, cache, B, S, device=device, mesh=mesh, layout=layout)
         with counters[1]:
-            build_serve_step(spec, mesh)(params, dc, tok, S - 1)
+            build_serve_step(spec, mesh, layout)(params, dc, tok, S - 1)
         result["flops"] = [c.get_total_flops() for c in counters]
     else:
         phases = {"prefill": ([], [], []), "decode": ([], [], [])}  # probs, ids, drops
@@ -226,7 +232,8 @@ def serving(case, rank: int, mesh, device, spec) -> None:
                 record_routing(*phases[name])
 
         marks("prefill")
-        out, logits, cache, shape = serve(spec, mesh, params, tokens, frontend, case["max_len"], case["new"], marks)
+        out, logits, cache, shape = serve(spec, mesh, params, tokens, frontend, case["max_len"], case["new"], marks,
+                                          layout)
         layers.moe_route, layers.moe_slots = inner_route, inner_slots
         shapes = [None] * dist.get_world_size()
         dist.all_gather_object(shapes, shape)
@@ -252,7 +259,8 @@ def training(case, rank: int, mesh, device, spec) -> None:
     compress_from = case.get("compress_from")
     has_residual = case["compress"] or compress_from is not None
     ck = Checkpointer(case["ckpt_in"], async_save=False)
-    specs = param_specs(spec.schema(), mesh)
+    layout = case.get("rules", "default")
+    specs = param_specs(spec.schema(), mesh, RULES[layout])
     state, _, _ = ck.restore(restore_target(spec, has_residual), step=case["step_in"], mesh=mesh,
                              specs=specs)
     for name, t in state["params"].items():  # the layout the step reads back from the placements
@@ -289,16 +297,21 @@ def training(case, rank: int, mesh, device, spec) -> None:
         return counted[-1]
 
     steps.DataParallelWeights = counting_weights
-    step = build_train_step(spec, optim, case["accum"], mesh=mesh)
+    step = build_train_step(spec, optim, case["accum"], mesh=mesh, layout=layout)
     fns = [step]
     if compress_from is not None:
         fns.append(build_train_step(spec, dataclasses.replace(optim, compress_grads=True), case["accum"],
-                                    mesh=mesh))
+                                    mesh=mesh, layout=layout))
     chosen = step if compress_from is None else (lambda i: fns[int(i >= compress_from)])
     result = {"metrics": run(chosen, state, batch, case, case.get("ckpt_out")), "drops": drops,
               "quant_steps": quant_steps, "grad_elements": grad_elements,
               "shard_elements": sum(local(p).numel() for p in state["params"].values())}
     result["launches"], result["routes"] = launch_counts(), route_counts()  # kernels launched by rank 0
+    digest = hashlib.sha256()  # this rank's shards of the params after the last step
+    for name in sorted(state["params"]):
+        digest.update(bits(local(state["params"][name])).tobytes())
+    result["param_digests"] = [None] * dist.get_world_size()
+    dist.all_gather_object(result["param_digests"], digest.hexdigest())
     if counted:  # the most over the ranks
         peak = torch.tensor([float(max(w.peak for w in counted))])
         dist.all_reduce(peak, op=dist.ReduceOp.MAX)
@@ -310,7 +323,7 @@ def training(case, rank: int, mesh, device, spec) -> None:
         result["unsharded"] = run(build_train_step(spec, optim, case["accum"]), plain, batch, case,
                                   case["ckpt_out"] + "_unsharded")
         if case.get("serve_check"):  # the trained params served both ways
-            result.update(serve_check(spec, mesh, state["params"], plain["params"], batch, device))
+            result.update(serve_check(spec, mesh, state["params"], plain["params"], batch, device, layout))
     if rank == 0:
         Path(case["out"]).mkdir(parents=True, exist_ok=True)
         (Path(case["out"]) / "metrics.json").write_text(json.dumps(result))
