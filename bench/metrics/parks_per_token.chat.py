@@ -1,0 +1,6 @@
+"""ServeStats parks over decoded tokens in the window (program counters)."""
+from benchkit import readers
+
+
+def read(view):
+    return readers.per_token(view, "parks")
