@@ -38,9 +38,11 @@ the row-parallel ``wo``.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from repro_torch.configs import ModelConfig
 from repro_torch.distributed.sharding import P, head_route
@@ -113,9 +115,11 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, aux: bool = False, expert
     prefill and decode drop it the same way)."""
     if cfg.family == "moe":
         shared = (p["ws_gate"], p["ws_up"], p["ws_down"]) if cfg.moe.shared_expert else None
-        return moe_ffn(cfg, x, p["router"], p["we_gate"], p["we_up"], p["we_down"], shared, aux=aux,
-                       experts=experts, ep=model_split("blocks.we_gate", 0),
-                       shared_tp=model_split("blocks.ws_gate", -1) if shared else None)
+        # a host range for traces, opened only under a running profiler
+        with _RecordFunctionFast("model.moe") if torch.autograd._profiler_enabled() else nullcontext():
+            return moe_ffn(cfg, x, p["router"], p["we_gate"], p["we_up"], p["we_down"], shared, aux=aux,
+                           experts=experts, ep=model_split("blocks.we_gate", 0),
+                           shared_tp=model_split("blocks.ws_gate", -1) if shared else None)
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"], tp=model_split("blocks.w_gate", -1)), 0.0
 
 

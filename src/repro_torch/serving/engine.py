@@ -21,14 +21,24 @@ The policy reads only host-side copies of the page table, lengths,
 compaction watermark, log tail and log meta rows, which the engine updates
 alongside the device state. So a step reads the card once (the sampled
 tokens) and a prefill once (its first token).
+
+Observability: ``EngineCounters`` (``eng.counters``, always on) splits each
+step's host time into policy, dispatch and read-back and counts the bytes
+the tiers move. Under a running torch.profiler, admissions and steps open
+host ranges named ``engine.<phase>`` (args ``rid=<rid>`` or
+``step=<clock>``, recorded with ``record_shapes``); with no profiler they
+open nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from repro_torch import resolve_device
 from repro_torch.core import tiering
@@ -65,6 +75,31 @@ class ServeStats:
         return self.flushed_tokens / max(self.flushed_pages, 1)
 
 
+@dataclasses.dataclass
+class EngineCounters:
+    """The engine's own measurements, kept apart from ``ServeStats`` (which
+    the JAX engine's counters match field for field; these are the port's,
+    and the times differ run to run). Times are ``perf_counter_ns`` sums
+    over every ``step``."""
+
+    policy_ns: int = 0  # step() outside the two intervals below
+    dispatch_ns: int = 0  # the decode step's uploads and launches
+    readback_ns: int = 0  # the host waiting for the sampled tokens
+    promoted_bytes: int = 0  # whole pages copied host tier -> fast pool
+    flushed_host_bytes: int = 0  # log rows compaction writes into the host tier
+    demand_pages: int = 0  # pages below active requests' watermarks, over decoding steps
+
+
+_OFF = contextlib.nullcontext()
+
+
+def _span(on: bool, name: str, args: str):
+    """The host range ``name`` when a profiler runs (``on``), else a no-op.
+    A function-scope range: the profiler puts no annotation of it on the
+    device timeline, so device busy time reads the same with it or without."""
+    return _RecordFunctionFast(name, (), {"args": args}) if on else _OFF
+
+
 class TieredEngine:
     def __init__(self, spec: ModelSpec, params, kv_cfg: TieredKVConfig, device="cuda"):
         self.device = resolve_device(device)
@@ -79,6 +114,10 @@ class TieredEngine:
         self.hbm_owner: List[Optional[tuple]] = [None] * kv_cfg.n_hbm_pages
         self.lru: np.ndarray = np.zeros(kv_cfg.n_hbm_pages, np.int64)
         self.stats = ServeStats()
+        self.counters = EngineCounters()
+        # one position's K and V over every layer (a log row), as the host tier holds it
+        host = self.state["host_k"]
+        self._row_bytes = 2 * host[:, 0, 0].numel() * host.element_size()
         self._clock = 0
         # host copies of the device state the policy reads (no device syncs)
         self.page_table = np.full((kv_cfg.max_requests, kv_cfg.max_pages_per_req), -1, np.int32)
@@ -106,20 +145,26 @@ class TieredEngine:
             )
         if max_pages > self.kv.max_pages_per_req:
             raise ValueError("max_pages_per_req too small")
-        rid = req.rid
-        self.requests[rid] = req
-        prompt = self._upload(np.asarray(req.prompt, np.int64)[None])
-        logits, cache = self.spec.prefill(self.params, prompt)
-        k = cache["k"][:, 0]  # (L, S, KV, hd)
-        v = cache["v"][:, 0]
-        # initial placement: prompt KV lands in the HOST tier (the paper's
-        # "all data starts in the CXL-SSD")
-        tiering.write_prefill_pages(self.kv, self.state, rid, k, v)
-        self.lengths[rid] = self.compacted[rid] = len(req.prompt)
-        # the prompt's next token comes from the prefill logits
-        req.out.append(int(torch.argmax(logits[0])))
-        req.served += 1
-        self.stats.decoded_tokens += 1
+        on = torch.autograd._profiler_enabled()
+        tag = f"rid={req.rid}" if on else ""
+        with _span(on, "engine.admit", tag):
+            rid = req.rid
+            self.requests[rid] = req
+            with _span(on, "engine.prefill", tag):
+                prompt = self._upload(np.asarray(req.prompt, np.int64)[None])
+                logits, cache = self.spec.prefill(self.params, prompt)
+            with _span(on, "engine.place", tag):
+                k = cache["k"][:, 0]  # (L, S, KV, hd)
+                v = cache["v"][:, 0]
+                # initial placement: prompt KV lands in the HOST tier (the paper's
+                # "all data starts in the CXL-SSD")
+                tiering.write_prefill_pages(self.kv, self.state, rid, k, v)
+            self.lengths[rid] = self.compacted[rid] = len(req.prompt)
+            # the prompt's next token comes from the prefill logits
+            with _span(on, "engine.first_token", tag):
+                req.out.append(int(torch.argmax(logits[0])))
+            req.served += 1
+            self.stats.decoded_tokens += 1
 
     # ---- residency / promotion ----
     def _pages_needed(self, req: Request) -> List[int]:
@@ -165,6 +210,7 @@ class TieredEngine:
         self.hbm_owner[slot] = (rid, logical)
         self.lru[slot] = self._clock
         self.stats.promoted_pages += 1
+        self.counters.promoted_bytes += self._row_bytes * self.kv.page_size
         return True
 
     # ---- compaction ----
@@ -185,6 +231,9 @@ class TieredEngine:
             flush_host.append([rid, logical, host_slot(self.kv, rid, logical)])
             self.stats.flushed_pages += 1
             self.stats.flushed_tokens += ntok
+            # a (request, position) is logged once between compactions, so
+            # the kernel writes ntok rows of this page into the host tier
+            self.counters.flushed_host_bytes += ntok * self._row_bytes
         # host lists: compact_log joins them and uploads one table
         tiering.compact_log(self.kv, self.state, flush_hbm, flush_host)
         self.log_meta[:] = -1
@@ -193,7 +242,17 @@ class TieredEngine:
 
     # ---- one engine step ----
     def step(self) -> None:
+        t0 = time.perf_counter_ns()
+        on = torch.autograd._profiler_enabled()
         self._clock += 1
+        tag = f"step={self._clock}" if on else ""
+        c = self.counters
+        waited = c.dispatch_ns + c.readback_ns
+        with _span(on, "engine.step", tag):
+            self._step(on, tag)
+        c.policy_ns += time.perf_counter_ns() - t0 - (c.dispatch_ns + c.readback_ns - waited)
+
+    def _step(self, on: bool, tag: str) -> None:
         active = [r for r in self.requests.values() if not r.done]
         if not active:
             return
@@ -201,63 +260,80 @@ class TieredEngine:
         # watermark, which can create page demand — readiness must be
         # evaluated against the post-compaction layout
         if self.state["log_tail"] + self.kv.batch > self.kv.log_slots:
-            self._compact()
+            with _span(on, "engine.compact", tag):
+                self._compact()
         # 1. residency + parking (the coordinated context switch)
-        ready, parked = [], []
-        for r in active:
-            missing = [p for p in self._pages_needed(r) if not self._resident(r.rid, p)]
-            if missing:
-                parked.append((r, missing))
-            else:
-                ready.append(r)
+        with _span(on, "engine.residency", tag):
+            ready, parked = [], []
+            demand = 0
+            for r in active:
+                needed = self._pages_needed(r)
+                demand += len(needed)
+                missing = [p for p in needed if not self._resident(r.rid, p)]
+                if missing:
+                    parked.append((r, missing))
+                else:
+                    ready.append(r)
         # 2. promotion budget — closest-to-ready parked request first (SJF:
         # guarantees progress), just-promoted pages join the protect set so
         # the budget loop cannot evict its own work
-        budget = self.kv.promote_pages_per_step
-        protect = {(r.rid, p) for r in ready for p in self._pages_needed(r)}
-        parked.sort(key=lambda rm: len(rm[1]))
-        for r, missing in parked:
-            self.stats.parks += 1
-            for p in missing:
-                if budget <= 0:
-                    break
-                if self._promote(r.rid, p, protect):
-                    protect.add((r.rid, p))
-                    budget -= 1
+        with _span(on, "engine.promote", tag):
+            budget = self.kv.promote_pages_per_step
+            protect = {(r.rid, p) for r in ready for p in self._pages_needed(r)}
+            parked.sort(key=lambda rm: len(rm[1]))
+            for r, missing in parked:
+                self.stats.parks += 1
+                for p in missing:
+                    if budget <= 0:
+                        break
+                    if self._promote(r.rid, p, protect):
+                        protect.add((r.rid, p))
+                        budget -= 1
         # 3. schedule ready requests, least-served first (CFS)
-        ready.sort(key=lambda r: r.served)
-        batch = ready[: self.kv.batch]
-        if not batch:
-            return
+        with _span(on, "engine.schedule", tag):
+            ready.sort(key=lambda r: r.served)
+            batch = ready[: self.kv.batch]
+            if not batch:
+                return
+            B = self.kv.batch
+            req_ids = np.full((B,), -1, np.int32)
+            tokens = np.zeros((B, 1), np.int64)
+            for i, r in enumerate(batch):
+                req_ids[i] = r.rid
+                last = r.out[-1] if r.out else r.prompt[-1]
+                tokens[i, 0] = last
+            tail = self.state["log_tail"]
+            for i in range(B):  # the meta rows the append kernel writes
+                rid = int(req_ids[i])
+                self.log_meta[tail + i] = (rid, self.lengths[rid] if rid >= 0 else -1)
         # 4. decode one token for the batch
-        B = self.kv.batch
-        req_ids = np.full((B,), -1, np.int32)
-        tokens = np.zeros((B, 1), np.int64)
-        for i, r in enumerate(batch):
-            req_ids[i] = r.rid
-            last = r.out[-1] if r.out else r.prompt[-1]
-            tokens[i, 0] = last
-        tail = self.state["log_tail"]
-        for i in range(B):  # the meta rows the append kernel writes
-            rid = int(req_ids[i])
-            self.log_meta[tail + i] = (rid, self.lengths[rid] if rid >= 0 else -1)
-        next_tok, self.state = self.step_fn(
-            self.params, self.state, self._upload(tokens), self._upload(req_ids)
-        )
-        next_np = next_tok.cpu().numpy()  # the step's one read of the card
-        for i, r in enumerate(batch):
-            self.lengths[r.rid] += 1
-            r.out.append(int(next_np[i, 0]))
-            r.served += 1
-            # touch LRU for this request's pages
-            for p in self._pages_needed(r):
-                s = int(self.page_table[r.rid, p])
-                if s >= 0:
-                    self.lru[s] = self._clock
-            if r.served >= r.max_new_tokens:
-                r.done = True
-            self.stats.decoded_tokens += 1
-        self.stats.steps += 1
+        c = self.counters
+        c.demand_pages += demand
+        t0 = time.perf_counter_ns()
+        with _span(on, "engine.decode", tag):
+            next_tok, self.state = self.step_fn(
+                self.params, self.state, self._upload(tokens), self._upload(req_ids)
+            )
+        t1 = time.perf_counter_ns()
+        with _span(on, "engine.readback", tag):
+            next_np = next_tok.cpu().numpy()  # the step's one read of the card
+        t2 = time.perf_counter_ns()
+        c.dispatch_ns += t1 - t0
+        c.readback_ns += t2 - t1
+        with _span(on, "engine.bookkeeping", tag):
+            for i, r in enumerate(batch):
+                self.lengths[r.rid] += 1
+                r.out.append(int(next_np[i, 0]))
+                r.served += 1
+                # touch LRU for this request's pages
+                for p in self._pages_needed(r):
+                    s = int(self.page_table[r.rid, p])
+                    if s >= 0:
+                        self.lru[s] = self._clock
+                if r.served >= r.max_new_tokens:
+                    r.done = True
+                self.stats.decoded_tokens += 1
+            self.stats.steps += 1
 
     def run(self, max_steps: int = 1000) -> ServeStats:
         for _ in range(max_steps):
