@@ -24,7 +24,12 @@ Phases (any failure exits non-zero; so does a missing card):
      7 and 9, at a phase 10 rank's prefill, (4, 381, 8, 128) / KV 4, and
      at phase 11's per-rank shapes (whisper's encoder, self- and
      cross-attention at 4 heads of 64, zamba2's shared block at 16 of 112,
-     in its prefill and its train step).
+     in its prefill and its train step). The MoE's routing glue (route,
+     slots, dispatch, SwiGLU epilogue, combine) at olmoe-1b-7b's widths and
+     a decode step's 32 rows and prefills of 768 and 2048: its routing
+     decisions bit-equal to the plain version's, each kernel and a whole
+     moe_ffn call timed against the plain version, and the call's device
+     ops at decode counted (9 at most).
   4. serving — full-width qwen3-1.7b (random weights from a seed) through
      the port's TieredEngine: every kernel launched as often as the
      deterministic policy requires, every flash call on the tensor-core
@@ -42,7 +47,8 @@ Phases (any failure exits non-zero; so does a missing card):
      (checked: token gaps, and how far each routed expert lies below the
      replay router's own k-th logit); the exact-match rate against a
      batch-1 dense decode is printed for information. The profiled window
-     adds the MoE's share of the device time by phase.
+     adds the MoE's share of the device time by phase: the device ops
+     whose launch falls inside each phase's host range.
   6. serving, other families — full-width whisper-base, rwkv6-3b and
      zamba2-7b (random weights from the seed) through the step builders
      (``launch/steps.py``: prefill, then greedy decode), as JAX serves
@@ -219,10 +225,14 @@ PROMPT_LENS = [203, 251, 298, 339, 387, 429, 466, 517]  # none a multiple of 16
 NEW_TOKENS = 48
 # the serving runs' launches: the policy depends on lengths only (128
 # steps, 8 prefills, 7 compactions), so a call a layer gives the counts
+# (moe_routing: five launches a MoE layer, each step and each prefill)
 EXPECTED_LAUNCHES = {
-    "qwen3-1.7b": {"paged_attention": 3584, "log_compact": 7, "kv_log_append": 3584, "flash_attention": 224},
-    "olmoe-1b-7b": {"paged_attention": 2048, "log_compact": 7, "kv_log_append": 2048, "flash_attention": 128},
+    "qwen3-1.7b": {"paged_attention": 3584, "log_compact": 7, "kv_log_append": 3584, "flash_attention": 224,
+                   "moe_routing": 0},
+    "olmoe-1b-7b": {"paged_attention": 2048, "log_compact": 7, "kv_log_append": 2048, "flash_attention": 128,
+                    "moe_routing": 10880},
 }
+SERVING_KERNELS = ("paged_attention", "log_compact", "kv_log_append", "flash_attention")
 # phase 6: the families JAX serves through its step builders
 FAMILY_ARCHS = ("whisper-base", "rwkv6-3b", "zamba2-7b")
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 381, 32  # 381: the chunked scans pad
@@ -395,7 +405,17 @@ SCAN_TOL = 1e-2
 # 0.1094 and 0.1250.
 NEAR_TIE_MOE = 0.5
 ROUTE_TIE = 0.5
-TOL = {"paged_attention": 2e-2, "flash_attention": 3e-2, "kv_log_append": 0.0, "log_compact": 0.0}
+TOL = {"paged_attention": 2e-2, "flash_attention": 3e-2, "kv_log_append": 0.0, "log_compact": 0.0,
+       "moe_ffn": 2e-2}
+# the MoE routing kernels against their plain version: probabilities and
+# gates in fp32 ulps (the route kernel's expf is the CUDA library's, compiled
+# apart from torch's), the SwiGLU epilogue in bf16 ulps (an expf ulp on a
+# bf16 rounding boundary); at decode (the first row count) a moe_ffn call
+# launches MOE_FFN_OPS device ops at most: the router's matmul, route,
+# slots, dispatch, two expert GEMMs, the epilogue, a GEMM, combine
+TOL_MOE_GATE_ULPS, TOL_MOE_EPILOGUE_ULPS = 2, 1
+MOE_ROUTING_ROWS = (32, 768, 2048)
+MOE_FFN_OPS = 9
 # the fused K/V epilogue, in bf16 ulps: it rounds where the plain ops do
 # and sums the rmsnorm's squares in the order torch's CUDA reduction uses;
 # a torch that sums otherwise can move a rounding by an ulp
@@ -405,6 +425,7 @@ REPLACES = {
     "log_compact": "src/repro/kernels/log_compact/kernel.py:86",
     "kv_log_append": "src/repro/kernels/kv_log_append/kernel.py:45",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
+    "moe_routing": "none: src/repro/models/layers.py:293 moe_ffn's routing glue is plain jnp",
 }
 
 
@@ -511,6 +532,35 @@ def window_ms(fn, iters=10, required=True):
     if required:
         raise AssertionError("the profiler saw no device op in three windows")
     return None, None
+
+
+def launched_in(events, names):
+    """({name: device ms}, {name: device ops}, unlinked) of the device ops
+    launched inside the host ranges called ``names`` in a profile: an op
+    belongs to the range in which its launch falls (the runtime call that
+    shares its correlation id). Ops launched through ctypes count too: the
+    profiler links them to their runtime call but to no aten op, so a
+    range's ``device_time_total`` leaves them out. ``unlinked``: device ops
+    whose launch the profile does not hold."""
+    import bisect
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type == cpu and e.name in names)
+    starts = [r[0] for r in ranges]
+    launch_at = {e.id: e.time_range.start for e in events if e.device_type == cpu and e.name.startswith("cu")}
+    ms, ops, unlinked = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0), 0
+    for e in events:
+        if e.device_type != cuda or e.is_user_annotation:
+            continue
+        if e.id not in launch_at:
+            unlinked += 1
+            continue
+        i = bisect.bisect_right(starts, launch_at[e.id]) - 1
+        if i >= 0 and launch_at[e.id] <= ranges[i][1]:
+            ms[ranges[i][2]] += e.time_range.elapsed_us() / 1e3
+            ops[ranges[i][2]] += 1
+    return ms, ops, unlinked
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_BF16):
@@ -821,6 +871,133 @@ def check_kernels(full):
     return rows
 
 
+def f32_ulps(a, b) -> int:
+    """Largest distance between two fp32 tensors in units in the last place."""
+    def line(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+def check_moe_routing(cfg):
+    """Phase 3, the MoE's routing glue (``kernels/moe_routing``) at ``cfg``'s
+    widths against its plain version (``ref.py``), at a decode step's rows
+    and at two prefills' (``MOE_ROUTING_ROWS``), the rows sharing a
+    component so that the favoured experts overflow their capacity. The
+    routing exact: logits, ids, pos, keep and the dispatch buffer bit for
+    bit; probabilities and gates within TOL_MOE_GATE_ULPS, the epilogue
+    within TOL_MOE_EPILOGUE_ULPS, the combine within 2^-7 of the sum of
+    its terms' magnitudes (tests/test_torch_gpu.py::test_moe_routing_kernels
+    gives the reasons). Rows: each kernel (``moe_route`` with the router's
+    matmul, as the layer calls it), and a whole ``moe_ffn`` against the
+    plain bodies, with its device-op count (MOE_FFN_OPS at most at decode).
+    No library row: no one PyTorch call computes any of the five."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.moe_routing import ops, ref
+    from repro_torch.models import layers
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m, d = cfg.moe, cfg.d_model
+    E, k, f = m.num_experts, m.top_k, m.d_ff_expert
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    w_router, w_gate, w_up = rand(d, E, scale=d ** -0.5), rand(E, d, f, scale=d ** -0.5), rand(E, d, f, scale=d ** -0.5)
+    w_down = rand(E, f, d, scale=f ** -0.5)
+    weight_bytes = 2 * (d * E + 3 * E * d * f)
+    rows, ulps = [], {}
+    for T in MOE_ROUTING_ROWS:
+        xt = rand(T, d) + rand(1, d)
+        cap = max(1, int(T * k * m.capacity_factor / E))
+        N = T * k
+        reset_launch_counts()
+        got, want = ops.moe_route(m, xt, w_router), ref.moe_route(m, xt, w_router)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
+            raise AssertionError(f"moe_route T={T}: logits or ids differ from the plain version")
+        gate_ulps = max(f32_ulps(got[1], want[1]), f32_ulps(got[2], want[2]))
+        _, _, gates, idx = got
+        pos, keep = ops.moe_slots(idx, E, cap)
+        rpos, rkeep = ref.moe_slots(idx, E, cap)
+        torch.cuda.synchronize()
+        if not (torch.equal(pos, rpos) and torch.equal(keep, rkeep)):
+            raise AssertionError(f"moe_slots T={T}: pos or keep differ from the plain version")
+        if bool(keep.all()):
+            raise AssertionError(f"moe_slots T={T}: no pair dropped, the capacity is not exercised")
+        buf = ops.moe_dispatch(xt, idx, pos, keep, E, cap)
+        if not torch.equal(buf.view(torch.int16), ref.moe_dispatch(xt, idx, pos, keep, E, cap).view(torch.int16)):
+            raise AssertionError(f"moe_dispatch T={T}: the buffer differs from the plain version")
+        h, u = torch.bmm(buf, w_gate), torch.bmm(buf, w_up)
+        act = ops.swiglu_epilogue(h, u)
+        epi_ulps = bf16_ulps(act, ref.swiglu_epilogue(h, u))
+        eo = torch.bmm(act, w_down)
+        out = ops.moe_combine(eo, idx, pos, gates, keep, cap)
+        plain_out = ref.moe_combine(eo, idx, pos, gates, keep, cap)
+        terms = ((gates * keep).to(eo.dtype).float()[..., None] * eo[idx, pos.clamp(0, cap - 1)].float()).abs()
+        torch.cuda.synchronize()
+        gap = (out.float() - plain_out.float()).abs()
+        if gate_ulps > TOL_MOE_GATE_ULPS or epi_ulps > TOL_MOE_EPILOGUE_ULPS or \
+                not bool((gap <= terms.sum(1) * 2.0 ** -7 * 1.01).all()):
+            raise AssertionError(f"moe_routing T={T}: gates {gate_ulps} fp32 ulps (tol {TOL_MOE_GATE_ULPS}), "
+                                 f"epilogue {epi_ulps} bf16 ulps (tol {TOL_MOE_EPILOGUE_ULPS}), combine max gap "
+                                 f"{float(gap.max())}")
+        if launch_counts()["moe_routing"] != 5:
+            raise AssertionError(f"moe_routing T={T}: {launch_counts()['moe_routing']} launches, want 5")
+        ulps[T] = {"gates_fp32": gate_ulps, "epilogue_bf16": epi_ulps}
+        kept = int(keep.sum())
+        print(f"  moe_routing T={T}: cap {cap}, {kept} of {N} pairs kept; routing bit-equal; gates {gate_ulps} "
+              f"fp32 ulps, epilogue {epi_ulps} bf16 ulps, combine max abs err {float(gap.max()):.3g}")
+
+        def plain_ffn():
+            _, _, g_, i_ = ref.moe_route(m, xt, w_router)
+            p_, k_ = ref.moe_slots(i_, E, cap)
+            e_ = ref.moe_experts(ref.moe_dispatch(xt, i_, p_, k_, E, cap), w_gate, w_up, w_down)
+            return ref.moe_combine(e_, i_, p_, g_, k_, cap)
+
+        ffn_err = check_close(f"moe_ffn T={T}", layers.moe_ffn(cfg, xt[None], w_router, w_gate, w_up, w_down,
+                                                                aux=False)[0][0], plain_ffn(), TOL["moe_ffn"])
+        # bytes each kernel must move, each input byte once: the tokens with a
+        # kept pair (dispatch), the distinct expert rows gathered (combine)
+        tokens_kept = int(keep.any(1).sum())
+        rows_gathered = int(torch.unique(idx * cap + pos.clamp(0, cap - 1)).numel())
+        buf_bytes, act_bytes = E * cap * d * 2, E * cap * f * 2
+        kernels = (
+            ("route (with the router's matmul)", lambda: ops.moe_route(m, xt, w_router),
+             lambda: ref.moe_route(m, xt, w_router), 0.0,
+             bound_ms(T * d * 2 + d * E * 2 + 2 * T * E * 2 + 2 * T * E * 4 + N * 12, 2.0 * T * d * E)),
+            ("slots", lambda: ops.moe_slots(idx, E, cap), lambda: ref.moe_slots(idx, E, cap), 0.0,
+             bound_ms(N * 8 + N * 9, 0.0)),
+            ("dispatch", lambda: ops.moe_dispatch(xt, idx, pos, keep, E, cap),
+             lambda: ref.moe_dispatch(xt, idx, pos, keep, E, cap), 0.0,
+             bound_ms(buf_bytes + tokens_kept * d * 2 + N * 8 + kept * 17, 0.0)),
+            ("epilogue", lambda: ops.swiglu_epilogue(h, u), lambda: ref.swiglu_epilogue(h, u), 0.0,
+             bound_ms(3 * act_bytes, 0.0)),
+            ("combine", lambda: ops.moe_combine(eo, idx, pos, gates, keep, cap),
+             lambda: ref.moe_combine(eo, idx, pos, gates, keep, cap), float(gap.max()),
+             bound_ms(rows_gathered * d * 2 + N * 21 + T * d * 2, 0.0)),
+            ("moe_ffn", lambda: layers.moe_ffn(cfg, xt[None], w_router, w_gate, w_up, w_down, aux=False),
+             plain_ffn, ffn_err,
+             bound_ms(weight_bytes + 2 * T * d * 2, 2.0 * T * d * E + 6.0 * E * cap * d * f)),
+        )
+        for name, kern, plain, err, bound in kernels:
+            rows.append(dict(shape=f"{name}, T={T}, E={E}, k={k}, cap {cap}", T=T, kernel=name,
+                             **timed(kern, plain, None, err, bound)))
+        ffn = rows[-1]
+        if T == MOE_ROUTING_ROWS[0] and ffn["device_ops"] > MOE_FFN_OPS:
+            raise AssertionError(f"moe_ffn at T={T}: {ffn['device_ops']} device ops, want at most {MOE_FFN_OPS}")
+        del buf, h, u, act, eo
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"  moe_routing {r['shape']:60s} err {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}, {r['device_ops']:.0f} ops)  plain {r['plain_ms']:.4f} ms (device "
+              f"{r['plain_device_ms']:.4f}, {r['plain_device_ops']:.0f} ops)  library null  "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return rows, ulps
+
+
 def check_flash_family_shapes(shapes=None):
     """Phase 3, flash attention at phase 6's shapes, the train shape, a
     split rank's train shape and a sharded serving rank's prefill shape
@@ -1123,7 +1300,7 @@ def serve(full, reduced, card, prompts):
         raise AssertionError("not every request finished")
     if min(stats.parks, stats.evicted_pages, stats.compactions) <= 0:
         raise AssertionError("the run must park, evict and compact")
-    if min(counts.values()) <= 0:
+    if min(counts[name] for name in SERVING_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     if counts != EXPECTED_LAUNCHES[full.name]:
         raise AssertionError(f"launch counts {counts} differ from {EXPECTED_LAUNCHES[full.name]}")
@@ -1230,11 +1407,12 @@ def serve(full, reduced, card, prompts):
           f"(sum of kernel times {sum_ms:.3f}; {len(on_device) / 4:.0f} device ops/step); idle share {1 - busy_ms / step_ms:.3f}; "
           f"paged attention {paged_ms:.4f} ms/step — on {card}")
     if moe:
-        cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
-        phase_ms = {name: sum(e.device_time_total for e in cpu if e.name == name) / 4e3 for name in MOE_PHASES}
-        moe_ms = sum(phase_ms.values())
-        print(f"  MoE {moe_ms:.3f} ms/step of device time ({moe_ms / busy_ms:.3f} of busy): "
-              + ", ".join(f"{name} {ms:.4f}" for name, ms in phase_ms.items()))
+        phase_ms, phase_ops, unlinked = launched_in(events, MOE_PHASES)
+        moe_ms = sum(phase_ms.values()) / 4
+        print(f"  MoE {moe_ms:.3f} ms/step of device time ({moe_ms / busy_ms:.3f} of busy), by the ops launched "
+              f"inside each phase: " + ", ".join(f"{name} {ms / 4:.4f} ({phase_ops[name] / 4:.0f} ops)"
+                                                 for name, ms in phase_ms.items())
+              + f"; {unlinked} device ops of the window linked to no launch")
         weights = sum(t.numel() * t.element_size() for t in params.values())
         print(f"  weights {weights / 1e9:.3f} GB, read once a step: {weights / PEAK_BYTES * 1e3:.3f} ms at "
               f"{PEAK_BYTES / 1e12:.2f} TB/s")
@@ -2886,6 +3064,7 @@ def main() -> int:
     with phase("kernels"):
         rows = check_kernels(full)
         rows_g1 = check_kernels(moe_full)
+        moe_rows, moe_ulps = check_moe_routing(moe_full)
         flash_family = check_flash_family_shapes()
     rng = np.random.default_rng(SEED)
     prompts = {rid: [int(t) for t in rng.integers(1, full.vocab - 1, size=n)] for rid, n in enumerate(PROMPT_LENS)}
@@ -2924,6 +3103,16 @@ def main() -> int:
     kernels = []
     keys = ("ms", "device_ms", "device_ops", "plain_ms", "plain_device_ms", "plain_device_ops", "library_ms",
             "library_device_ms")
+
+    def by_path(name):
+        return {full.name: counts[name], moe_full.name: counts_moe[name],
+                **{arch: c[name] for arch, c in counts_family.items()},
+                f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name],
+                SPLIT_PATH: flash_split if name == "flash_attention" else 0,
+                SERVE_1X1_PATH: counts_serve[name],
+                SERVE_PATH: sum(r["launches"][name] for r in serve_ranks),
+                **{path: c[name] for path, (c, _) in family_paths.items()}}
+
     for name in ("paged_attention", "log_compact", "kv_log_append", "flash_attention"):
         r = rows[name]
         entry = {
@@ -2943,13 +3132,7 @@ def main() -> int:
             extra += flash_family + layout_flash
         entry["extra"] = [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "bound_ms": x["bound"][0],
                            "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in extra]
-        entry["launches_by_path"] = {full.name: counts[name], moe_full.name: counts_moe[name],
-                                     **{arch: c[name] for arch, c in counts_family.items()},
-                                     f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name],
-                                     SPLIT_PATH: flash_split if name == "flash_attention" else 0,
-                                     SERVE_1X1_PATH: counts_serve[name],
-                                     SERVE_PATH: sum(r["launches"][name] for r in serve_ranks),
-                                     **{path: c[name] for path, (c, _) in family_paths.items()}}
+        entry["launches_by_path"] = by_path(name)
         kernels.append(entry)
     kernels[0]["launches_per_call"] = 2
     kernels[2]["ulps"], kernels[2]["tol_ulps"] = rows["kv_log_append"]["ulps"], TOL_EPILOGUE_ULPS
@@ -2976,6 +3159,20 @@ def main() -> int:
     kernels[3]["layout_launches_per_rank"].update({
         f"serve {layout} {shape[0]}x{shape[1]} {arch} rank {r['rank']}": r["serve"][arch]["launches"]["flash_attention"]
         for arch, layout, shape in LAYOUT_SERVE for r in layout_ranks})
+    # moe_routing: the decode-shape moe_ffn call first, then each kernel and prefill
+    first = next(r for r in moe_rows if r["kernel"] == "moe_ffn" and r["T"] == MOE_ROUTING_ROWS[0])
+    rest = [r for r in moe_rows if r is not first]
+    kernels.append({
+        "name": "moe_routing", "route": "cuda", "source": "src/repro_torch/csrc/moe_routing.cu",
+        "replaces": REPLACES["moe_routing"], "launches": counts_moe["moe_routing"], "shape": first["shape"],
+        "max_abs_err": first["max_abs_err"], "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+        **{k: first[k] for k in keys},
+        "extra": [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "bound_ms": x["bound"][0],
+                   "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in rest],
+        "launches_by_path": by_path("moe_routing"), "launches_per_moe_layer_call": 5,
+        "ulps": {str(T): u for T, u in moe_ulps.items()},
+        "tol_ulps": {"gates_fp32": TOL_MOE_GATE_ULPS, "epilogue_bf16": TOL_MOE_EPILOGUE_ULPS},
+    })
     kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
                                "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
                                "bound_ms": x["bound"][0], "bound_by": x["bound"][1],

@@ -20,6 +20,10 @@ Kernels (each replaces one Pallas TPU kernel of ``repro.kernels``):
                     tiers in one launch (``log_compact_tiers``)
   flash_attention — tiled causal attention for prefill: wgmma tensor-core
                     route for bf16, CUDA-core route for fp32
+  moe_routing     — replaces no Pallas kernel: the capacity MoE's routing,
+                    slots, dispatch, SwiGLU epilogue and combine around the
+                    expert GEMMs, five launches a ``moe_ffn`` call; where
+                    autograd records a graph, a plain-op backward
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ def _wrappers():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.kv_log_append.ops import kv_log_append
     from repro_torch.kernels.log_compact.ops import log_compact
+    from repro_torch.kernels.moe_routing import ops as moe_routing
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 
     return {
@@ -37,13 +42,14 @@ def _wrappers():
         "log_compact": log_compact,
         "kv_log_append": kv_log_append,
         "flash_attention": flash_attention,
+        "moe_routing": moe_routing.counts,
     }
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name (paged attention: calls of the
     op, two launches each; kv_log_append and log_compact: launches of either
-    entry point)."""
+    entry point; moe_routing: launches of its five kernels)."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 

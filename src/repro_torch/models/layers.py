@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.configs import ModelConfig, MoEConfig
 from repro_torch.distributed.groups import DataParallelWeights, ModelParallel
 from repro_torch.distributed.sharding import DATA_AXES, MODEL_AXIS, compute_spec, split_dim
+from repro_torch.kernels.moe_routing import ops as moe_ops
 
 NEG_INF = -1e30  # finite mask value: -inf - -inf would be NaN
 
@@ -309,51 +310,37 @@ def moe_route(m: MoEConfig, xt: torch.Tensor, w_router: torch.Tensor):
     """Router: xt (T, d) -> (fp32 logits (T, E), probs, renormalised top-k
     gates (T, k), expert ids (T, k) int64). The top k in descending order,
     ties to the lower expert id (``lax.top_k``'s order: a stable descending
-    sort)."""
-    logits = (xt @ w_router).float()
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, idx = gate_vals[:, : m.top_k], idx[:, : m.top_k]
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-    return logits, probs, gate_vals, idx
+    sort). On the card: the matmul, then one kernel (``kernels/moe_routing``)."""
+    return moe_ops.moe_route(m, xt, w_router)
 
 
 def moe_slots(idx: torch.Tensor, num_experts: int, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Slot of each (token, choice) in its expert's capacity buffer, claimed
-    in token-major, choice-minor order: (pos (T, k), keep (T, k) bool, False
-    where the expert was full)."""
-    T, k = idx.shape
-    flat = F.one_hot(idx, num_experts).to(torch.int32).reshape(T * k, num_experts)
-    pos = (torch.cumsum(flat, dim=0) * flat - 1).amax(dim=-1).reshape(T, k)
-    return pos, (pos < cap) & (pos >= 0)
+    in token-major, choice-minor order: (pos (T, k) int64, keep (T, k) bool,
+    False where the expert was full). On the card: one kernel, training too."""
+    return moe_ops.moe_slots(idx, num_experts, cap)
 
 
 def moe_dispatch(xt: torch.Tensor, idx, pos, keep, num_experts: int, cap: int) -> torch.Tensor:
     """The experts' (E, cap, d) input buffers, empty slots zero. Each kept
     slot receives exactly one row, so a plain write (no accumulation) gives
-    the bits of JAX's add onto zeros; dropped pairs go to a spare row."""
-    d, k = xt.shape[1], idx.shape[1]
-    dest = torch.where(keep, idx * cap + pos, num_experts * cap).reshape(-1)
-    buf = torch.zeros((num_experts * cap + 1, d), dtype=xt.dtype, device=xt.device)
-    buf[dest] = xt[:, None].expand(-1, k, -1).reshape(-1, d)
-    return buf[: num_experts * cap].view(num_experts, cap, d)
+    the bits of JAX's add onto zeros. On the card: one kernel."""
+    return moe_ops.moe_dispatch(xt, idx, pos, keep, num_experts, cap)
 
 
 def moe_experts(dispatch: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     """Each expert's SwiGLU over its whole buffer (silu in fp32): every
-    expert's, or in a split step this rank's."""
-    h = torch.bmm(dispatch, w_gate)
-    u = torch.bmm(dispatch, w_up)
-    h = F.silu(h.float()).to(dispatch.dtype) * u
-    return torch.bmm(h, w_down)
+    expert's, or in a split step this rank's. On the card the epilogue
+    between the GEMMs is one kernel."""
+    return moe_ops.moe_experts(dispatch, w_gate, w_up, w_down)
 
 
-def moe_combine(eo: torch.Tensor, idx, pos, gate_vals, cap: int) -> torch.Tensor:
+def moe_combine(eo: torch.Tensor, idx, pos, gate_vals, keep, cap: int) -> torch.Tensor:
     """(T, d): each token's gated sum of its choices' expert outputs, the
-    gates rounded to the activation dtype first; a dropped pair (gate 0)
-    gathers slot clip(pos)."""
-    gathered = eo[idx, pos.clamp(0, cap - 1)]  # (T, k, d)
-    return torch.einsum("tk,tkd->td", gate_vals.to(eo.dtype), gathered)
+    gates times ``keep`` (0 for a dropped pair) rounded to the activation
+    dtype first; a dropped pair gathers slot clip(pos). On the card: one
+    kernel."""
+    return moe_ops.moe_combine(eo, idx, pos, gate_vals, keep, cap)
 
 
 def moe_ffn(
@@ -422,7 +409,7 @@ def moe_ffn(
         pos, keep = pos[own], keep[own]
     if ep is None:
         eo = moe_experts(moe_dispatch(xt, idx, pos, keep, E, cap), w_gate, w_up, w_down)
-        out = moe_combine(eo, idx, pos, gate_vals * keep, cap)
+        out = moe_combine(eo, idx, pos, gate_vals, keep, cap)
     else:
         n_local = w_gate.shape[0]
         first = ep.index * n_local

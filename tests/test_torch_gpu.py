@@ -420,7 +420,9 @@ def test_engine_on_the_card(cuda):
         for rid, p in prompts.items():
             eng.add_request(Request(rid=rid, prompt=p, max_new_tokens=20))
         stats[dev] = vars(eng.run(max_steps=2000))
-    assert min(launch_counts().values()) > 0
+    counts = launch_counts()
+    assert min(counts[name] for name in ("paged_attention", "log_compact", "kv_log_append", "flash_attention")) > 0
+    assert counts["moe_routing"] == 0  # a dense FFN
     assert stats["cuda"] == stats["cpu"]
     for rid, p in prompts.items():
         _, gaps = dense_decode(spec, params, p, 20, forced=eng.requests[rid].out, device="cuda")
@@ -470,7 +472,8 @@ def test_moe_engine_on_the_card(cuda, arch, monkeypatch):
         counts[dev] = launch_counts()
     layers_, steps = spec.cfg.n_layers, stats["cuda"]["steps"]
     assert counts["cuda"] == {"paged_attention": layers_ * steps, "kv_log_append": layers_ * steps,
-                              "flash_attention": layers_ * len(prompts), "log_compact": stats["cuda"]["compactions"]}
+                              "flash_attention": layers_ * len(prompts), "log_compact": stats["cuda"]["compactions"],
+                              "moe_routing": 5 * layers_ * (steps + len(prompts))}
     assert route_counts()["tensor_core"] == layers_ * len(prompts)
     assert stats["cuda"] == stats["cpu"]
     forced = {rid: eng.requests[rid].out for rid in prompts}
@@ -947,3 +950,159 @@ def test_dp_layout_on_one_rank_nccl(cuda, arch):
             _bits_equal(got[2][key], want[2][key])
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The MoE's routing glue (kernels/moe_routing) against its plain version.
+# Routing decisions exact: ids, pos, keep and the dispatch buffer bit for
+# bit (the route kernel sums the softmax and the gates in torch's order, and
+# equal logits give equal probabilities, so a tie falls to the lower id on
+# both sides). Probabilities and gates within 2 fp32 ulps: the kernel's expf
+# and torch's are the CUDA library's, but compiled apart. The epilogue
+# within 1 bf16 ulp: it rounds where the plain ops do, so it differs only
+# where an expf ulp lands on a bf16 rounding boundary. The combine within
+# 2^-7 of the sum of its terms' magnitudes: each side rounds its fp32 sum to
+# bf16 once (half an ulp each, at most 2^-8 of the value each), and the
+# plain einsum's cuBLAS sums the k terms in another order.
+# ---------------------------------------------------------------------------
+MOE_ROUTING_CASES = [(E, k, T, "random") for E, k in ((64, 8), (8, 2), (16, 1), (4, 1)) for T in (1, 32, 381, 2048)] \
+    + [(E, k, 32, "ties") for E, k in ((64, 8), (8, 2), (16, 1), (4, 1))]
+
+
+def _f32_ulps(a, b) -> int:
+    def line(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+def _moe_routing_case(E, k, T, kind, dev, d=256):
+    """Rows sharing a component (the favoured experts overflow their
+    capacity), a run of padded rows (one row repeated), router columns that
+    tie exactly (expert E-1 a copy of expert 0; "ties": every logit of a row
+    equal)."""
+    rng = np.random.default_rng(E * 100_000 + k * 10_000 + T)
+    x = rng.normal(size=(T, d)) + 1.5 * rng.normal(size=d)
+    x[T // 2:T // 2 + T // 4] = x[0]
+    w = rng.normal(size=(d, E)) / np.sqrt(d)
+    w[:, E - 1] = w[:, 0]
+    if kind == "ties":
+        w[:] = 0.0
+    xt = torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
+    return xt, torch.from_numpy(w.astype(np.float32)).to(dev, torch.bfloat16), max(1, int(T * k * 1.25 / E))
+
+
+@pytest.mark.parametrize("E,k,T,kind", MOE_ROUTING_CASES)
+def test_moe_routing_kernels(cuda, E, k, T, kind):
+    from repro_torch.configs import MoEConfig
+    from repro_torch.kernels.moe_routing import ops as moe_ops, ref as moe_ref
+
+    m = MoEConfig(num_experts=E, top_k=k, d_ff_expert=64)
+    xt, w, cap = _moe_routing_case(E, k, T, kind, cuda)
+    reset_launch_counts()
+    got, want = moe_ops.moe_route(m, xt, w), moe_ref.moe_route(m, xt, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[3], want[3])
+    ulps = _f32_ulps(got[1], want[1]), _f32_ulps(got[2], want[2])
+    assert max(ulps) <= 2, ulps
+    if kind == "ties":
+        assert got[3].tolist() == [list(range(k))] * T
+    idx = want[3]
+    pos, keep = moe_ops.moe_slots(idx, E, cap)
+    rpos, rkeep = moe_ref.moe_slots(idx, E, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(pos, rpos) and torch.equal(keep, rkeep)
+    if kind == "random" and T >= 32:
+        assert not keep.all(), "no (token, choice) was dropped: capacity not exercised"
+    _bits_equal(moe_ops.moe_dispatch(xt, idx, pos, keep, E, cap), moe_ref.moe_dispatch(xt, idx, pos, keep, E, cap))
+
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    h, u = [(torch.randn((E, cap, 64), generator=gen, device=cuda) * 3).to(torch.bfloat16) for _ in range(2)]
+    want_h = torch.nn.functional.silu(h.float()).to(torch.bfloat16) * u
+    got_h = moe_ops.swiglu_epilogue(h, u)
+    torch.cuda.synchronize()
+    assert _bf16_ulps(got_h, want_h) <= 1
+
+    eo = torch.randn((E, cap, xt.shape[1]), generator=gen, device=cuda).to(torch.bfloat16)
+    gates = want[2]
+    out = moe_ops.moe_combine(eo, idx, pos, gates, keep, cap)
+    ref_out = moe_ref.moe_combine(eo, idx, pos, gates, keep, cap)
+    terms = ((gates * keep).to(torch.bfloat16).float()[..., None] * eo[idx, pos.clamp(0, cap - 1)].float()).abs()
+    torch.cuda.synchronize()
+    gap = (out.float() - ref_out.float()).abs()
+    assert bool((gap <= terms.sum(1) * 2.0 ** -7 * 1.01).all()), float(gap.max())
+    assert launch_counts()["moe_routing"] == 5
+
+
+def test_moe_ffn_launches(cuda):
+    """One decode-shape moe_ffn at olmoe-1b-7b's widths (T = 32, E = 64, k =
+    8) launches at most 9 device ops: the router's matmul, route, slots,
+    dispatch, the gate and up GEMMs, the epilogue, the down GEMM, combine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmoe-1b-7b")
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def leaf(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale).to(torch.bfloat16)
+
+    w = (leaf(d, m.num_experts, scale=d ** -0.5), leaf(m.num_experts, d, m.d_ff_expert, scale=d ** -0.5),
+         leaf(m.num_experts, d, m.d_ff_expert, scale=d ** -0.5), leaf(m.num_experts, m.d_ff_expert, d, scale=0.125))
+    x = leaf(32, 1, d, scale=1.0)
+    for _ in range(2):
+        layers.moe_ffn(cfg, x, *w, aux=False)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, _ = layers.moe_ffn(cfg, x, *w, aux=False)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"moe_ffn at decode shape: {len(ops)} device ops: {ops}")
+    assert 0 < len(ops) <= 9, ops
+    assert launch_counts()["moe_routing"] == 5
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
+def test_moe_ffn_autograd_path(cuda, monkeypatch):
+    """Where autograd records a graph (inputs and weights that require grad,
+    grad mode on) the five kernels run all the same, with the bits of the
+    same call under no_grad, and the gradients are the plain version's but
+    for the forward's rounding: each kernel's node differentiates the plain
+    version recomputed from its saved inputs, and those inputs differ from
+    the plain forward's by the gates' 2 fp32 ulps and the combine's bf16
+    rounding at most (gradients within 1 % of their norm)."""
+    from repro_torch.kernels.moe_routing import ref as moe_ref
+
+    cfg = get_reduced("olmoe-1b-7b")
+    spec = ModelSpec(cfg)
+    p = spec.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    w = [p[f"blocks.{n}"][0].detach().clone().requires_grad_(True) for n in ("router", "we_gate", "we_up", "we_down")]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 24, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_(True)
+    up = torch.randn((2, 24, cfg.d_model), generator=gen, device=cuda)
+
+    def grads():
+        out, aux = layers.moe_ffn(cfg, x, *w)
+        return out, torch.autograd.grad((out.float() * up).sum() + aux, (x, *w))
+
+    reset_launch_counts()
+    out, got = grads()
+    assert launch_counts()["moe_routing"] == 5
+    with torch.no_grad():
+        fast, _ = layers.moe_ffn(cfg, x, *w, aux=False)
+    _bits_equal(fast, out.detach())
+    for name in ("moe_route", "moe_slots", "moe_dispatch", "moe_experts", "moe_combine"):
+        monkeypatch.setattr(layers, name, getattr(moe_ref, name))
+    reset_launch_counts()
+    plain, want = grads()
+    assert launch_counts()["moe_routing"] == 0
+    _close(out.detach(), plain.detach(), 2e-2)
+    for name, a, b in zip(("x", "router", "we_gate", "we_up", "we_down"), got, want):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        print(f"{name}: gradient {rel:.2e} of its norm from the plain version's")
+        assert bool(torch.isfinite(a).all()) and rel <= 1e-2, (name, rel)

@@ -25,6 +25,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.kv_log_append.ops import kv_log_append, qkv_log_append
 from repro_torch.kernels.log_compact.ops import log_compact, log_compact_tiers
+from repro_torch.models import layers
 from repro_torch.models.layers import AttnParams
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention, split_plan
 from repro_torch.kernels.paged_attention.ref import combine_ref, paged_decode_attention_split_ref
@@ -333,4 +334,6 @@ def test_cpu_calls_launch_nothing():
     reset_launch_counts()
     q = torch.zeros(1, 4, 2, 16)
     flash_attention(q, q[:, :, :2], q[:, :, :2])
-    assert launch_counts() == {"paged_attention": 0, "log_compact": 0, "kv_log_append": 0, "flash_attention": 0}
+    layers.moe_slots(torch.tensor([[1, 0], [1, 1]]), 2, 2)
+    assert launch_counts() == {"paged_attention": 0, "log_compact": 0, "kv_log_append": 0, "flash_attention": 0,
+                               "moe_routing": 0}
