@@ -1,7 +1,9 @@
-"""Model FLOPs of a decoder, from the configuration's sizes: 2 x the matmul
-parameters a token touches (attention projections, the FFN or the k experts
-and the router a token is routed through, the logits) plus attention's
-4 x H x hd x context a layer (q.k and w.v, 2 FLOPs a multiply-add)."""
+"""The card's peaks, and the model FLOPs of a decoder (the decoder family's
+count, ``families/decoder.py``) from the configuration's sizes: 2 x the
+matmul parameters a token touches (attention projections, the FFN or the k
+experts and the router a token is routed through, the logits) plus
+attention's 4 x H x hd x context a layer (q.k and w.v, 2 FLOPs a
+multiply-add)."""
 from __future__ import annotations
 
 from typing import Iterable

@@ -110,13 +110,17 @@ def bound_s(nbytes: float, flops: float) -> float:
 
 
 def paged_roofline(view) -> Optional[float]:
+    """None where the traced slice holds no decoding step with paged
+    attention's kernels (a batch run whose window closed before wave 1's
+    first full batch, say)."""
     s, steps = view.summary, view.rec["traced_steps"]
     if not s or not steps or s["kernels"].get("paged_attention", 0) <= 0:
         return None
     rl = view.roofline("paged_attention")
     page = view.cell["kv"]["page_size"]
     least = sum(bound_s(*rl.bytes_flops(view.model, st["rows"], st["log_rows"], page)) for st in steps)
-    return least * view.model["n_layers"] / s["kernels"]["paged_attention"] * 100
+    calls = view.family.attention_calls(view.model)["paged_attention"]  # a decode step's
+    return least * calls / s["kernels"]["paged_attention"] * 100
 
 
 def flash_roofline(view) -> Optional[float]:
@@ -125,4 +129,5 @@ def flash_roofline(view) -> Optional[float]:
         return None
     rl = view.roofline("flash_attention")
     least = sum(bound_s(*rl.bytes_flops(view.model, S)) for S in admits)
-    return least * view.model["n_layers"] / s["kernels"]["flash_attention"] * 100
+    calls = view.family.attention_calls(view.model)["flash_attention"]  # a prefill's
+    return least * calls / s["kernels"]["flash_attention"] * 100

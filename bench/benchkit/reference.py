@@ -1,8 +1,8 @@
-"""The plain reference: a decoder forward in plain PyTorch, float32 with TF32
-off, from the configuration file's ``model`` sizes (as the program runs
-them; ``departures`` in the file says where that differs from the published
-model). It imports nothing of the program and takes only the weights and the
-tokens the benchmark made.
+"""The decoder family's plain reference (``families/decoder.py``): a decoder
+forward in plain PyTorch, float32 with TF32 off, from the configuration
+file's ``model`` sizes (as the program runs them; ``departures`` in the
+file says where that differs from the published model). It imports nothing
+of the program and takes only the weights and the tokens the benchmark made.
 
 Per layer: x += wo(attn(rope(qknorm(wq h)), rope(qknorm(wk h)), wv h)) with
 h = rmsnorm(x); x += ffn(rmsnorm(x)); logits = rmsnorm(x) @ lm_head (or the

@@ -14,8 +14,10 @@ wave's engine is released first.
 The record this returns holds host times (seconds from the window's start)
 of every admission, token and step, the engine's counters at the window's
 edges, and what the plain reference needs after the window: the prompts and
-served tokens, and (for an MoE) each decode step's rows in the program's
-order, kept at the step function's boundary.
+served tokens, and (where the family's ``replays_batches`` says so, as for
+an MoE) each decode step's rows in the program's order, kept at the step
+function's boundary. The configuration's family gives the program's
+configuration, the weights' layout and each step's model FLOPs.
 """
 from __future__ import annotations
 
@@ -26,20 +28,11 @@ from typing import Dict, List
 
 import torch
 
-from benchkit import flops, traffic
+from benchkit import traffic
 from benchkit.trace import Tracer, ranged
 
 TRACE_ADMITS = 3  # admissions in a traced slice
 TRACE_STEPS = 30  # decoding steps in a traced slice
-
-
-def program_config(name: str, model: dict):
-    from repro_torch.configs import ModelConfig, MoEConfig
-
-    kw = dict(model)
-    if kw.get("moe"):
-        kw["moe"] = MoEConfig(**kw["moe"])
-    return ModelConfig(name=name, **kw)
 
 
 def kv_config(cell: dict, max_requests: int):
@@ -69,10 +62,11 @@ class Run:
         self.ctx = ctx
         self.cell, self.mix, self.model = ctx.cell, ctx.mix, ctx.model
         self.device = torch.device(ctx.device)
-        self.spec = ModelSpec(program_config(ctx.config_name, self.model))
+        self.family = ctx.family
+        self.spec = ModelSpec(self.family.program_config(ctx.config_name, self.model))
         self.Request, self.TieredEngine = Request, TieredEngine
         self.tiering, self.dense = tiering, dense
-        self.moe = bool(self.model.get("moe"))
+        self.replay = self.family.replays_batches(self.model)
         self.tracer = Tracer(self.device) if ctx.trace else None
         self.rec: dict = {"requests": [], "steps": [], "waves": [], "traced_steps": [], "traced_admits": []}
 
@@ -110,7 +104,7 @@ class Run:
 
         def step_fn(p, state, tokens, req_ids):
             nxt, state = inner(p, state, tokens, req_ids)
-            if self.moe:  # device tensors, no read of the card: the reference replays these batches
+            if self.replay:  # device tensors, no read of the card: the reference replays these batches
                 steps.append((tokens, req_ids))
             return nxt, state
 
@@ -190,7 +184,7 @@ class Run:
                 del live[rid]
         rows = len(contexts)
         self.rec["steps"].append({"t0": t0 - origin, "t1": t1 - origin, "rows": rows,
-                                  "flops": flops.decode_flops(self.model, contexts), "traced": in_trace})
+                                  "flops": self.family.decode_flops(self.model, contexts), "traced": in_trace})
         if in_trace and rows:
             self.rec["traced_steps"].append({"rows": list(zip(contexts, paged)),
                                              "log_rows": int(eng.state["log_tail"])})
@@ -366,7 +360,7 @@ def drive(ctx) -> Run:
     from benchkit import weights
 
     run = Run(ctx)
-    run.params = weights.draw(ctx.model, ctx.seed, run.device)
+    run.params = weights.draw(ctx.family.layout(ctx.model), ctx.seed, run.device)
     run.setup(run.params, traffic.longest_prompt(ctx.mix))
     gc.collect()
     gc.disable()  # no collector pauses inside the ramp and the window

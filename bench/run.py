@@ -3,7 +3,8 @@
     python3 bench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Everything is found by name: the cell ``bench/cells/<workload>.json`` names
-its configuration (``bench/configs/<config>.json``), its traffic mix
+its configuration (``bench/configs/<config>.json``, which may name its family
+``bench/families/<family>.py``; ``decoder`` by default), its traffic mix
 (``bench/traffic/<mix>.json``) and its driver (``bench/drivers/<driver>.py``);
 each metric that ``BENCHMARK.json`` gives the cell is read by
 ``bench/metrics/<metric>.py`` (``read(view) -> number or None``). With
@@ -81,11 +82,12 @@ def forbidden_modules() -> List[str]:
 
 class View:
     """What a metric reader sees: the run's record, the cell, the model
-    sizes, the window's length and (traced) the trace summary."""
+    sizes and their family, the window's length and (traced) the trace
+    summary."""
 
     def __init__(self, rec: dict, ctx, summary: Optional[dict], dirs):
         self.rec, self.ctx, self.summary, self.dirs = rec, ctx, summary, dirs
-        self.cell, self.model, self.seconds = ctx.cell, ctx.model, ctx.seconds
+        self.cell, self.model, self.family, self.seconds = ctx.cell, ctx.model, ctx.family, ctx.seconds
 
     def in_window(self, t: float) -> bool:
         return 0.0 <= t < self.seconds
@@ -98,18 +100,25 @@ class View:
         return load_module(find("roofline", kernel, self.dirs, ".py"))
 
 
+def family(config: dict, dirs: Sequence[Path] = (BENCH,)):
+    """The family module of a configuration file: ``families/<name>.py``,
+    the name its ``"family_module"`` gives (``decoder`` where it has none)."""
+    return load_module(find("families", config.get("family_module", "decoder"), dirs, ".py"))
+
+
 def context(workload: str, seed: int, seconds: float, trace: bool = False, device: str = "cuda",
             dirs: Sequence[Path] = (BENCH,), cell_overrides: Optional[dict] = None,
             wrap_step: Optional[Callable] = None):
     """(the run's context, its driver module): the cell file, with
-    ``cell_overrides`` replacing its keys, and the configuration, mix and
-    driver it names."""
+    ``cell_overrides`` replacing its keys, and the configuration (with its
+    family), mix and driver it names."""
     cell = {**json.loads(find("cells", workload, dirs).read_text()), **(cell_overrides or {})}
     config = json.loads(find("configs", cell["config"], dirs).read_text())
     mix = json.loads(find("traffic", cell["traffic"], dirs).read_text())
     driver = load_module(find("drivers", cell["driver"], dirs, ".py"))
     ctx = types.SimpleNamespace(cell=cell, mix=mix, model=config["model"], config_name=config["name"],
-                                seed=seed, seconds=seconds, trace=trace, device=device, wrap_step=wrap_step)
+                                family=family(config, dirs), seed=seed, seconds=seconds, trace=trace,
+                                device=device, wrap_step=wrap_step)
     return ctx, driver
 
 
@@ -118,7 +127,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
              wrap_step: Optional[Callable] = None, cell_overrides: Optional[dict] = None,
              check: bool = True) -> dict:
     """One run; returns the result line's object. ``dirs``: where cells,
-    configs, mixes, drivers, metrics and rooflines are looked up, in order;
+    configs, families, mixes, drivers, metrics and rooflines are looked up,
+    in order;
     ``bench``: the BENCHMARK.json object (default: the checkout's);
     ``cell_overrides``: keys that replace the cell file's (``sweep.py``'s
     rates); ``check=False`` skips the reference (the sweep's runs)."""

@@ -1,6 +1,6 @@
 """Find a chat cell's knee: run the cell once at each of a list of rates
 (the rate and nothing else replaced) and print, for each, the live-request
-count at the window's middle and end and the tails. The knee is the highest
+count at the window's middle and end and the cell's end-to-end metrics. The knee is the highest
 rate at which the live count does not grow through the window.
 
     python3 bench/sweep.py --workload qwen3-1.7b.chat-pressure --rates 2,3,4 --seed 7 --seconds 40

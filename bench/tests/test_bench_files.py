@@ -1,6 +1,7 @@
-"""The benchmark's files: every cell names a configuration, a mix and a
-driver that exist; every metric has its reader; the weights' layout is the
-program's schema; nothing the harness imports is JAX or the JAX package."""
+"""The benchmark's files: every cell names a configuration (and through it
+a family), a mix and a driver that exist; every metric has its reader; the
+weights' layout is the program's schema; nothing the harness imports is JAX
+or the JAX package."""
 import json
 import math
 import subprocess
@@ -24,7 +25,8 @@ def test_every_cell_names_files_that_exist(name):
     entry = next(w for w in BENCHMARK["workloads"] if w["name"] == name)
     cell = json.loads((BENCH / "cells" / f"{name}.json").read_text())
     assert cell["config"] == entry["config"] and cell["traffic"] == entry["traffic"]
-    assert (BENCH / "configs" / f"{cell['config']}.json").exists()
+    config = json.loads((BENCH / "configs" / f"{cell['config']}.json").read_text())
+    assert (BENCH / "families" / f"{config.get('family_module', 'decoder')}.py").exists()
     assert (BENCH / "traffic" / f"{cell['traffic']}.json").exists()
     assert (BENCH / "drivers" / f"{cell['driver']}.py").exists()
     assert cell["why"] and "\n" not in cell["why"]
@@ -50,35 +52,34 @@ def test_every_metric_has_a_reader_and_moves_a_metric_its_cells_report():
 
 @pytest.mark.parametrize("name", [c["name"] for c in BENCHMARK["configs"]])
 def test_weights_layout_is_the_programs_schema(name):
+    """Each configuration's layout, from its family, is the schema of the
+    program's configuration that the family builds."""
+    import run
     from benchkit import weights
     from repro_torch.models.api import ModelSpec
     from repro_torch.models.common import flat_leaves
 
-    drv = _driver()
     cfg_file = json.loads((BENCH / "configs" / f"{name}.json").read_text())
-    model = cfg_file["model"]
-    spec = ModelSpec(drv.program_config(name, model))
+    family, model = run.family(cfg_file), cfg_file["model"]
+    spec = ModelSpec(family.program_config(name, model))
     schema = {n: leaf.shape for n, leaf in flat_leaves(spec.schema())}
-    mine = {n: shape for n, shape, _, _ in weights.layout(model)}
-    assert mine == schema
-    assert weights.param_bytes(model) == cfg_file["memory"]["weights_bytes"] == 2 * spec.param_count()
+    leaves = family.layout(model)
+    assert {n: shape for n, shape, _, _ in leaves} == schema
+    assert weights.param_bytes(leaves) == cfg_file["memory"]["weights_bytes"] == 2 * spec.param_count()
 
 
 def test_weights_draw_is_deterministic_in_the_seed():
+    import run
     import torch
     from benchkit import weights
 
-    model = json.loads((BENCH / "tests" / "tiny" / "configs" / "tiny-moe.json").read_text())["model"]
-    a, b, c = (weights.draw(model, s, "cpu") for s in (5, 5, 2**33 + 1))
+    cfg_file = json.loads((BENCH / "tests" / "tiny" / "configs" / "tiny-moe.json").read_text())
+    model = cfg_file["model"]
+    leaves = run.family(cfg_file).layout(model)
+    a, b, c = (weights.draw(leaves, s, "cpu") for s in (5, 5, 2**33 + 1))
     assert all(torch.equal(a[k], b[k]) for k in a) and not torch.equal(a["embed"], c["embed"])
     assert a["blocks.wq"].dtype == torch.bfloat16
     assert abs(float(a["blocks.wq"].float().std()) - 1 / math.sqrt(model["d_model"])) < 0.02
-
-
-def _driver():
-    import run
-
-    return run.load_module(BENCH / "drivers" / "tiered_engine.py")
 
 
 def test_no_module_of_jax_or_the_jax_package_is_loaded():
@@ -92,7 +93,7 @@ sys.path[:0] = [str(bench), str(bench.parent / "src")]
 import benchkit.reference
 assert not any(k.split(".")[0] == "repro_torch" for k in sys.modules), "the reference imported the program"
 import run, sweep, control
-for sub in ("benchkit", "drivers", "metrics", "roofline"):
+for sub in ("benchkit", "families", "drivers", "metrics", "roofline"):
     for p in sorted((bench / sub).glob("*.py")):
         run.load_module(p)
 drv = run.load_module(bench / "drivers" / "tiered_engine.py")

@@ -1,5 +1,6 @@
-"""Whole runs on the CPU at reduced width (the kernels' plain versions),
-through cells that exist only as files in ``tests/tiny/``: the reference
+"""Whole runs on the CPU at reduced width (the kernels' plain versions), on
+a fake clock (``fake_clock.py``), through cells that exist only as files in
+``tests/tiny/``: the reference
 agrees with ``TieredEngine`` for a dense FFN and an MoE; faults planted
 under the timed path make ``correct`` false, under the dense cells' widest
 gap and the MoE cells' mean gap; the fp8 control reads wider gaps than the
@@ -18,11 +19,23 @@ for p in (str(BENCH), str(ROOT / "src")):
         sys.path.insert(0, p)
 
 import control  # noqa: E402
+import fake_clock  # noqa: E402
 import run  # noqa: E402
 
 TINY = BENCH / "tests" / "tiny"
 TINY_BENCH = json.loads((TINY / "bench.json").read_text())
 DIRS = (TINY, BENCH)
+
+
+@pytest.fixture(autouse=True)
+def _fake_clock_one_thread(monkeypatch):
+    """Each run on the fake clock, with one CPU thread: the tiny shapes gain
+    nothing from more, and test processes beside this one keep the cores."""
+    fake_clock.install(monkeypatch, tick=4e-3)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def tiny_run(workload, seed=11, seconds=1.5, wrap_step=None, trace=False):

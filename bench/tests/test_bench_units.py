@@ -17,6 +17,7 @@ import run  # noqa: E402
 from benchkit import flops, readers, traffic  # noqa: E402
 
 MIXES = sorted(p.stem for p in (BENCH / "traffic").glob("*.json"))
+DECODER = run.load_module(BENCH / "families" / "decoder.py")
 
 
 @pytest.mark.parametrize("mix", MIXES)
@@ -50,8 +51,9 @@ def test_quantile_lengths_hand_values():
     assert got.tolist() == [50, 100, 150]  # exp(+-0.967) x 100 clipped
 
 
-def _view(rec, seconds=10.0, summary=None, model=None, cell=None):
-    ctx = types.SimpleNamespace(cell=cell or {"kv": {"page_size": 16}}, model=model or {}, seconds=seconds)
+def _view(rec, seconds=10.0, summary=None, model=None, cell=None, family=DECODER):
+    ctx = types.SimpleNamespace(cell=cell or {"kv": {"page_size": 16}}, model=model or {}, seconds=seconds,
+                                family=family)
     return run.View(rec, ctx, summary, [BENCH])
 
 
@@ -110,6 +112,25 @@ def test_trace_readers_on_a_recorded_summary():
     least = sum(readers.bound_s(S * 12 * 16 * 2, 4 * 16 * 4 * S * (S + 1) / 2) for S in (64, 128))
     assert readers.flash_roofline(view) == pytest.approx(least * 2 / 0.002 * 100)
     assert readers.idle_share(_view(rec)) is None and readers.paged_roofline(_view(rec, model=model)) is None
+
+
+def test_paged_roofline_reads_what_the_traced_slice_holds():
+    """A batch run traces wave 1's first admissions, then 30 steps from its
+    first full batch whose pages are all in the pool (prompts land in the
+    host tier and are promoted a budget a step). A slow traced run whose
+    window closes before that batch holds prefills alone: flash attention's
+    roofline reads, and paged attention's reads nothing, no paged kernel
+    having run in the slice. A slice that holds a decoding step reads it."""
+    model = {"n_layers": 2, "n_heads": 4, "n_kv_heads": 2, "head_dim": 16}
+    cut = {"window_s": 0.4, "busy_s": 0.1, "kernels": {"paged_attention": 0.0, "flash_attention": 0.002},
+           "spans": {}}
+    view = _view({"traced_steps": [], "traced_admits": [64, 128, 256]}, summary=cut, model=model)
+    assert readers.paged_roofline(view) is None and readers.flash_roofline(view) > 0
+    held = dict(cut, kernels={"paged_attention": 0.001, "flash_attention": 0.002})
+    step = {"rows": [(100, 96), (20, 16)], "log_rows": 40}
+    view = _view({"traced_steps": [step], "traced_admits": [64, 128, 256]}, summary=held, model=model)
+    b, f = 120 * 2 * 2 * 16 * 2 + (6 + 1) * 4 + 2 * 2 * 4 * 16 * 2 + 40 * 8, 120 * 4 * 4 * 16
+    assert readers.paged_roofline(view) == pytest.approx(readers.bound_s(b, f) * 2 / 0.001 * 100)
 
 
 def test_roofline_and_flop_functions_against_hand_counts():
