@@ -225,12 +225,13 @@ PROMPT_LENS = [203, 251, 298, 339, 387, 429, 466, 517]  # none a multiple of 16
 NEW_TOKENS = 48
 # the serving runs' launches: the policy depends on lengths only (128
 # steps, 8 prefills, 7 compactions), so a call a layer gives the counts
-# (moe_routing: five launches a MoE layer, each step and each prefill)
+# (moe_routing: five launches a MoE layer, each step and each prefill;
+# mamba_step, rms_norm_rows and ssd_scan: the "zamba2" family's only)
 EXPECTED_LAUNCHES = {
     "qwen3-1.7b": {"paged_attention": 3584, "log_compact": 7, "kv_log_append": 3584, "flash_attention": 224,
-                   "moe_routing": 0},
+                   "moe_routing": 0, "mamba_step": 0, "rms_norm_rows": 0, "ssd_scan": 0},
     "olmoe-1b-7b": {"paged_attention": 2048, "log_compact": 7, "kv_log_append": 2048, "flash_attention": 128,
-                    "moe_routing": 10880},
+                    "moe_routing": 10880, "mamba_step": 0, "rms_norm_rows": 0, "ssd_scan": 0},
 }
 SERVING_KERNELS = ("paged_attention", "log_compact", "kv_log_append", "flash_attention")
 # phase 6: the families JAX serves through its step builders
@@ -243,6 +244,34 @@ FLASH_FAMILY_SHAPES = (
     ("whisper-base cross-attention", 4, 381, 103, 8, 8, 64, False),
     ("zamba2-7b shared block", 4, 381, 381, 32, 32, 112, True),
 )
+# phase 6b: Zamba2-7B-Instruct through TieredEngine at its benchmark cell's
+# settings (bench/cells/zamba2-7b-instruct.batch.json): one full batch of
+# ZAMBA2_BATCH prompts (256-2048 tokens), then ZAMBA2_STEPS decode steps
+# while the prompts' pages are promoted from the host tier (32 a step), two
+# log compactions' worth and more
+ZAMBA2_ARCH = "zamba2-7b-instruct"
+ZAMBA2_BATCH, ZAMBA2_STEPS, ZAMBA2_NEW = 16, 40, 64
+ZAMBA2_PROMPTS = (337, 1203, 768, 2048, 512, 903, 256, 640, 1500, 412, 768, 1024, 300, 860, 590, 1100)
+ZAMBA2_KV = dict(page_size=16, n_hbm_pages=2304, max_pages_per_req=160, log_slots=192, promote_pages_per_step=32)
+ZAMBA2_CHECKED = 4  # requests held against the plain float32 reference (models/zamba2_ref.py)
+ZAMBA2_GAP_MEAN = 0.06  # the cell's gap limit (PERF.md section 6, the table of gap limits)
+# a step's launches: a Mamba layer's mamba_step and row norm; a site's append,
+# paged call and two row norms (the block's input and FFN norms); a prefill's:
+# a site's flash call, the same norms
+ZAMBA2_LAYERS, ZAMBA2_SITES = 81, 13
+ZAMBA2_NORMS = ZAMBA2_LAYERS + 2 * ZAMBA2_SITES
+# the kernels against their plain versions at the cell's shapes: mamba_step's
+# SSM states relative, its conv windows exact, y (unit scale after the group
+# norm) within one bf16 ulp at 1, relative and absolute: C.S + D x cancels
+# to near 0 in some elements, where the sums' other order is several ulps of
+# the small value (4 in the first chip run, at seed 0); the row norm in bf16
+# ulps; flash and paged attention at TOL
+TOL_MAMBA_STATE, TOL_MAMBA_Y, TOL_NORM_ULPS = 1e-6, 2.0 ** -7, 1
+# the prefill scan (fp32 sums in another order than the plain version's),
+# relative to |plain| + 1, for y and the final state
+TOL_SSD_SCAN = 1e-4
+# the fused K/V epilogue at hd 224 (RoPE only) in bf16 ulps
+TOL_EPILOGUE_224_ULPS = 1
 # phase 7: training
 TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 4096, 4, 4
@@ -426,6 +455,9 @@ REPLACES = {
     "kv_log_append": "src/repro/kernels/kv_log_append/kernel.py:45",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
     "moe_routing": "none: src/repro/models/layers.py:293 moe_ffn's routing glue is plain jnp",
+    "mamba_step": "none: src/repro/models/mamba2.py decodes Mamba2 in plain jnp",
+    "rms_norm_rows": "none: the RMSNorm is plain jnp (src/repro/models/layers.py)",
+    "ssd_scan": "none: src/repro/models/mamba2.py scans Mamba2's prefill in plain jnp",
 }
 
 
@@ -1203,6 +1235,288 @@ def serve_family(cfg, card):
     if worst > bound:
         raise AssertionError(f"a served token is {worst} below the teacher-forced max logit")
     return counts, bound
+
+
+def zamba2_params(spec, dev):
+    """The schema's draw on the card, with A_log and dt_bias as Mamba2
+    initialises them (A = -U[1, 16], dt log-uniform in [1e-3, 0.1]), so the
+    decays are those of a trained model's range."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = spec.init(gen, device=dev)
+    for k, t in params.items():
+        if k.endswith("A_log"):
+            params[k] = torch.log(1 + 15 * torch.rand(t.shape, generator=gen, device=dev)).to(t.dtype)
+        elif k.endswith("dt_bias"):
+            dt = torch.exp(torch.rand(t.shape, generator=gen, device=dev) * math.log(100) + math.log(1e-3))
+            params[k] = torch.log(torch.expm1(dt)).to(t.dtype)
+    return params
+
+
+def check_zamba2_kernels(cfg):
+    """Phase 6b, the kernels: ``mamba_step`` (B 16 over 33 slots and B 12
+    over 25, rows in scattered slots, a padded row in each), ``rms_norm_rows``
+    (the step's row norms, 16 x 3584 and 16 x 7168), ``ssd_scan`` (a Mamba
+    layer's prefill scan at 768, 2,048 and 300 positions), flash attention at hd
+    224 (the cell's median and longest prompt), the fused K/V append at hd
+    224 (a step's rows into a 192-slot log) and paged attention at hd 224
+    (16 rows of ~900 positions: 56 pages and 6 log rows each), each against
+    its plain version on the same card inputs, timed with its least time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.kv_log_append.ops import qkv_log_append
+    from repro_torch.kernels.kv_log_append.ref import qkv_log_append_ref
+    from repro_torch.kernels.mamba_step.ops import mamba_step, rms_norm_rows
+    from repro_torch.kernels.mamba_step.ref import mamba_step_ref
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models import layers
+    from repro_torch.models.layers import AttnParams
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    s = cfg.ssm
+    H, P, N, G, W = s.heads, s.head_dim, s.state_dim, cfg.ssm_groups, s.conv_dim
+    inner, C = H * P, H * P + 2 * G * N
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = {"mamba_step": [], "rms_norm_rows": [], "ssd_scan": [], "flash_attention": [], "kv_log_append": [],
+            "paged_attention": []}
+
+    # ---- mamba_step: one token of a Mamba layer over the rows' slots ----
+    w = dict(conv_w=randn(C, W, scale=0.3), conv_b=randn(C, scale=0.1),
+             dt_bias=torch.log(torch.expm1(torch.exp(torch.rand(H, generator=gen, device=dev) * math.log(100)
+                                                     + math.log(1e-3)))).to(bf),
+             A_log=torch.log(1 + 15 * torch.rand(H, generator=gen, device=dev)).to(bf),
+             D=(1 + 0.1 * randn(H, dtype=torch.float32)).to(bf),
+             norm_w=(1 + 0.1 * randn(inner, dtype=torch.float32)).to(bf))
+    for B in (16, 12):
+        slots = 2 * B + 1  # the last the scratch slot
+        zx, conv, ssm = randn(B, 2 * inner + 2 * G * N + H), randn(slots, W - 1, C), randn(slots, H, P, N,
+                                                                                          dtype=torch.float32,
+                                                                                          scale=0.5)
+        req = torch.randperm(slots - 1, generator=gen, device=dev)[:B].to(torch.int32)
+        req[B // 2] = -1
+        args = (w["conv_w"], w["conv_b"], w["dt_bias"], w["A_log"], w["D"], w["norm_w"], req)
+        outs = []
+        reset_launch_counts()
+        for fn in (mamba_step, mamba_step_ref):
+            c, st = conv.clone(), ssm.clone()
+            outs.append((fn(zx, c, st, *args, groups=G), c, st))
+        if launch_counts()["mamba_step"] != 1:
+            raise AssertionError(f"mamba_step: {launch_counts()['mamba_step']} launches for one call")
+        (y, c, st), (y_ref, c_ref, st_ref) = outs
+        torch.cuda.synchronize()
+        live = req[req >= 0].long()
+        untouched = torch.ones(slots, dtype=torch.bool, device=dev)
+        untouched[live] = False
+        untouched[-1] = False
+        if not (torch.equal(c[untouched], conv[untouched]) and torch.equal(st[untouched], ssm[untouched])):
+            raise AssertionError("mamba_step wrote a slot no live row names")
+        if not torch.equal(c[live], c_ref[live]):
+            raise AssertionError("mamba_step: the conv windows differ from the plain version's")
+        err = float(((st[live] - st_ref[live]).abs() / (st_ref[live].abs() + 1.0)).max())
+        if err > TOL_MAMBA_STATE:
+            raise AssertionError(f"mamba_step: SSM states {err:.2e} from the plain version's")
+        ulps = bf16_ulps(y[req >= 0], y_ref[req >= 0])
+        check_close("mamba_step y", y[req >= 0], y_ref[req >= 0], TOL_MAMBA_Y)
+        c, st = conv.clone(), ssm.clone()
+        row = timed(lambda: mamba_step(zx, c, st, *args, groups=G), lambda: mamba_step_ref(zx, c, st, *args, groups=G),
+                    None, err, bound_ms(B * (2 * (inner * N * 4 + (W - 1) * C * 2) + (2 * inner + 2 * G * N + H) * 2
+                                             + inner * 2), 0.0))
+        rows["mamba_step"].append(dict(row, shape=f"B {B} over {slots} slots, {H} heads of {P}, {G} groups, "
+                                                  f"state {N}, conv {W}", ulps=ulps))
+
+    # ---- rms_norm_rows: the step's row norms ----
+    for d in (cfg.d_model, 2 * cfg.d_model):
+        x, g = randn(16, d, scale=3.0), (1 + 0.2 * randn(d, dtype=torch.float32)).to(bf)
+        reset_launch_counts()
+        got = rms_norm_rows(x, g, cfg.norm_eps)
+        if launch_counts()["rms_norm_rows"] != 1:
+            raise AssertionError(f"rms_norm_rows: {launch_counts()['rms_norm_rows']} launches for one call")
+        ulps = bf16_ulps(got, layers.rmsnorm(x, g, cfg.norm_eps))
+        if ulps > TOL_NORM_ULPS:
+            raise AssertionError(f"rms_norm_rows: {ulps} bf16 ulps from layers.rmsnorm")
+        row = timed(lambda: rms_norm_rows(x, g, cfg.norm_eps), lambda: layers.rmsnorm(x, g, cfg.norm_eps), None,
+                    float(ulps), bound_ms(2 * x.numel() * 2 + d * 2, 0.0))
+        rows["rms_norm_rows"].append(dict(row, shape=f"16 x {d}", ulps=ulps))
+
+    # ---- ssd_scan: one Mamba layer's prefill scan ----
+    for S in (768, 2048, 300):
+        xbc = F.silu(randn(1, S, C, dtype=torch.float32)).to(bf)
+        dt = F.softplus(randn(1, S, H, dtype=torch.float32) + w["dt_bias"].float())
+        loga = dt * -torch.exp(w["A_log"].float())
+        kw = dict(heads=H, groups=G, state_dim=N, chunk=s.chunk)
+        reset_launch_counts()
+        y, st = ssd_scan(xbc, dt, loga, w["D"], **kw)
+        if launch_counts()["ssd_scan"] != 1:
+            raise AssertionError(f"ssd_scan: {launch_counts()['ssd_scan']} launches for one call")
+        y_ref, st_ref = ssd_scan_ref(xbc, dt, loga, w["D"], **kw)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"ssd_scan S={S}: non-finite output")
+        err = max(float(((y - y_ref).abs() / (y_ref.abs() + 1.0)).max()),
+                  float(((st - st_ref).abs() / (st_ref.abs() + 1.0)).max()))
+        if err > TOL_SSD_SCAN:
+            raise AssertionError(f"ssd_scan S={S}: {err:.2e} from the plain version (relative to |plain| + 1)")
+        pad = -(-S // s.chunk) * s.chunk
+        flops = H * (pad // s.chunk) * (s.chunk ** 2 * (N + P) + 4 * s.chunk * N * P)
+        nbytes = S * C * 2 + 2 * S * H * 4 + S * inner * 4 + H * P * N * 4
+        row = timed(lambda: ssd_scan(xbc, dt, loga, w["D"], **kw), lambda: ssd_scan_ref(xbc, dt, loga, w["D"], **kw),
+                    None, err, bound_ms(nbytes, flops, PEAK_FP32))
+        rows["ssd_scan"].append(dict(row, shape=f"(1, {S}), {H} heads of {P}, {G} groups, state {N}, "
+                                                f"chunk {s.chunk}", ulps=None))
+
+    # ---- flash attention at hd 224: one site of a prefill ----
+    for S in (768, 2048):
+        q, k, v = randn(1, S, cfg.n_heads, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+        reset_launch_counts()
+        got = flash_attention(q, k, v, causal=True)
+        if route_counts() != {"tensor_core": 1, "cuda_core": 0}:
+            raise AssertionError(f"flash attention at hd {hd} missed the tensor-core route: {route_counts()}")
+        err = check_close(f"flash attention hd {hd} S={S}", got, flash_attention_ref(q, k, v, causal=True),
+                          TOL["flash_attention"])
+        nbytes = 4 * S * cfg.n_heads * hd * 2
+        row = timed(lambda: flash_attention(q, k, v, causal=True), lambda: flash_attention_ref(q, k, v, causal=True),
+                    None, err, bound_ms(nbytes, 4.0 * hd * cfg.n_heads * S * (S + 1) / 2))
+        rows["flash_attention"].append(dict(row, shape=f"{ZAMBA2_ARCH} site, (1, {S}, {cfg.n_heads}, {hd}) causal"))
+
+    # ---- the fused K/V append at hd 224: a step's 16 rows into the log ----
+    B, S_log, tail = 16, ZAMBA2_KV["log_slots"], 40
+    raw = (randn(B, 1, cfg.n_heads * hd), randn(B, 1, KV * hd), randn(B, 1, KV * hd))
+    ap = AttnParams(wq=None, wk=None, wv=None, wo=None)
+    pos = torch.randint(0, 2000, (B,), generator=gen, device=dev, dtype=torch.int32)
+    req = torch.arange(B, dtype=torch.int32, device=dev)
+    log_k, log_v = randn(S_log, KV, hd), randn(S_log, KV, hd)
+    outs = []
+    reset_launch_counts()
+    for fn in (qkv_log_append, qkv_log_append_ref):
+        lk, lv, meta = log_k.clone(), log_v.clone(), torch.full((S_log, 2), -1, dtype=torch.int32, device=dev)
+        q = fn(cfg, ap, *raw, pos, lk, lv, meta, tail, req, pos)[0]
+        outs.append((q, lk, lv, meta))
+    if launch_counts()["kv_log_append"] != 1:
+        raise AssertionError(f"qkv_log_append at hd {hd}: {launch_counts()['kv_log_append']} launches")
+    torch.cuda.synchronize()
+    if not torch.equal(outs[0][3], outs[1][3]):
+        raise AssertionError(f"qkv_log_append at hd {hd}: the log's meta rows differ")
+    ulps = max(bf16_ulps(a, b) for a, b in zip(outs[0][:3], outs[1][:3]))
+    if ulps > TOL_EPILOGUE_224_ULPS:
+        raise AssertionError(f"qkv_log_append at hd {hd}: {ulps} bf16 ulps from the plain version")
+    lk, lv, meta = log_k.clone(), log_v.clone(), torch.full((S_log, 2), -1, dtype=torch.int32, device=dev)
+    row = timed(lambda: qkv_log_append(cfg, ap, *raw, pos, lk, lv, meta, tail, req, pos),
+                lambda: qkv_log_append_ref(cfg, ap, *raw, pos, lk, lv, meta, tail, req, pos), None, float(ulps),
+                bound_ms(2 * sum(t.numel() for t in raw) * 2 + B * 8, 0.0))
+    rows["kv_log_append"].append(dict(row, shape=f"{ZAMBA2_ARCH} site, B {B}, {KV} heads of {hd}, RoPE, "
+                                                 f"{S_log} log slots", ulps=ulps))
+
+    # ---- paged attention at hd 224: one site of a decode step ----
+    page, n_pages, N_req, ctx, logged = 16, 1024, 160, 896, 6
+    pool_k, pool_v = randn(n_pages, page, KV, hd), randn(n_pages, page, KV, hd)
+    table = torch.full((B, N_req), -1, dtype=torch.int32, device=dev)
+    table[:, :ctx // page] = torch.randperm(n_pages, generator=gen, device=dev)[:B * ctx // page].view(B, -1).int()
+    plen = torch.full((B,), ctx, dtype=torch.int32, device=dev)
+    lengths = plen + logged
+    meta = torch.full((S_log, 2), -1, dtype=torch.int32, device=dev)
+    for i in range(B * logged):
+        meta[i, 0], meta[i, 1] = i % B, ctx + i // B
+    qd = randn(B, cfg.n_heads, hd)
+    args = (qd, pool_k, pool_v, table, lengths, log_k, log_v, meta)
+    reset_launch_counts()
+    got = paged_decode_attention(*args, page_lengths=plen, req_ids=req)
+    err = check_close(f"paged attention hd {hd}", got, paged_decode_attention_ref(*args, page_lengths=plen, req_ids=req),
+                      TOL["paged_attention"])
+    if launch_counts()["paged_attention"] != 1:
+        raise AssertionError(f"paged attention at hd {hd}: {launch_counts()['paged_attention']} calls counted")
+    nbytes = 2 * B * (ctx + logged) * KV * hd * 2 + 2 * qd.numel() * 2 + table.numel() * 4 + meta.numel() * 4
+    row = timed(lambda: paged_decode_attention(*args, page_lengths=plen, req_ids=req),
+                lambda: paged_decode_attention_ref(*args, page_lengths=plen, req_ids=req), None, err,
+                bound_ms(nbytes, 4.0 * cfg.n_heads * hd * B * (ctx + logged)))
+    rows["paged_attention"].append(dict(row, shape=f"{ZAMBA2_ARCH} site, B {B}, {cfg.n_heads} heads of {hd}, "
+                                                   f"{ctx} paged + {logged} logged positions, {S_log} log slots"))
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"  {name} {r['shape']}: device {r['device_ms']:.4f} ms ({r['device_ops']} ops), plain "
+                  f"{r['plain_device_ms']:.4f} ms ({r['plain_device_ops']} ops), bound {r['bound'][0]:.5f} ms "
+                  f"({r['bound'][1]}), err {r['max_abs_err']:.3g}")
+    return rows
+
+
+def serve_zamba2(card):
+    """Phase 6b, the engine: Zamba2-7B-Instruct at published width and depth
+    through ``TieredEngine.add_request`` / ``step`` with the cell's KV
+    settings. The launch counts, reset just before, are those of the
+    prompts' prefills and the steps; the served tokens of ZAMBA2_CHECKED
+    requests lie, on the mean, within ZAMBA2_GAP_MEAN of the plain float32
+    reference's best logit. Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import zamba2_7b_instruct
+    from repro_torch.core.tiering import TieredKVConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.models.api import ModelSpec
+    from repro_torch.models.zamba2_ref import Zamba2Reference
+    from repro_torch.serving.engine import Request, TieredEngine
+
+    dev = torch.device("cuda")
+    cfg = zamba2_7b_instruct()
+    spec = ModelSpec(cfg)
+    params = zamba2_params(spec, dev)
+    kv = TieredKVConfig(batch=ZAMBA2_BATCH, max_requests=ZAMBA2_BATCH, **ZAMBA2_KV)
+    eng = TieredEngine(spec, params, kv, device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = {rid: [int(t) for t in rng.integers(0, cfg.vocab, size=n)] for rid, n in enumerate(ZAMBA2_PROMPTS)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, p in prompts.items():
+        eng.add_request(Request(rid=rid, prompt=p, max_new_tokens=ZAMBA2_NEW))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step_s = []
+    while eng.stats.steps < ZAMBA2_STEPS and len(step_s) < 2 * ZAMBA2_STEPS:  # a call may only promote
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - ts)
+    counts, routes, stats = launch_counts(), route_counts(), eng.stats
+    n = len(prompts)
+    want = {"paged_attention": ZAMBA2_SITES * stats.steps, "kv_log_append": ZAMBA2_SITES * stats.steps,
+            "flash_attention": ZAMBA2_SITES * n, "log_compact": stats.compactions, "moe_routing": 0,
+            "mamba_step": ZAMBA2_LAYERS * stats.steps, "rms_norm_rows": ZAMBA2_NORMS * (stats.steps + n),
+            "ssd_scan": ZAMBA2_LAYERS * n}
+    print(f"  {cfg.name}: {spec.param_count() / 1e9:.3f} B params; {n} prefills {t1 - t0:.3f}s; {stats.steps} steps "
+          f"in {len(step_s)} calls, {stats.decoded_tokens} tokens, "
+          f"median {sorted(step_s)[len(step_s) // 2] * 1e3:.2f} ms; {stats.compactions} compactions; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches {counts}; flash routes {routes} — on {card}")
+    if stats.steps != ZAMBA2_STEPS or stats.compactions < 2:
+        raise AssertionError(f"the run must make {ZAMBA2_STEPS} steps and compact twice: {stats}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} differ from {want}")
+    if routes != {"tensor_core": ZAMBA2_SITES * n, "cuda_core": 0}:
+        raise AssertionError(f"a flash call missed the tensor-core route: {routes}")
+    ref = Zamba2Reference(dataclasses.asdict(cfg), params)
+    gaps = []
+    for rid in sorted(prompts, key=lambda r: -len(prompts[r]))[:ZAMBA2_CHECKED]:
+        served = list(eng.requests[rid].out)
+        toks = torch.as_tensor(prompts[rid] + served[:-1], device=dev)
+        lg = ref.forward(toks)[len(prompts[rid]) - 1:]
+        idx = torch.arange(len(served), device=dev)
+        gaps += (lg.max(-1).values - lg[idx, torch.as_tensor(served, device=dev)]).tolist()
+        del lg
+    mean = sum(gaps) / len(gaps)
+    print(f"  served tokens against the float32 reference: {len(gaps)} tokens of {ZAMBA2_CHECKED} requests, gap mean "
+          f"{mean:.5f} (limit {ZAMBA2_GAP_MEAN}), widest {max(gaps):.4f}")
+    if not mean <= ZAMBA2_GAP_MEAN:
+        raise AssertionError(f"served tokens: gap mean {mean} over {ZAMBA2_GAP_MEAN}")
+    return counts
 
 
 @contextlib.contextmanager
@@ -3045,6 +3359,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs import zamba2_7b_instruct as get_zamba2
     from repro_torch.kernels import _build
 
     with phase("environment"):
@@ -3079,6 +3394,10 @@ def main() -> int:
         for arch in FAMILY_ARCHS:
             counts_family[arch], family_bounds[arch] = serve_family(get_config(arch), card)
             torch.cuda.empty_cache()
+    with phase("serving, zamba2"):
+        zamba2_rows = check_zamba2_kernels(get_zamba2())
+        counts_zamba2 = serve_zamba2(card)
+    torch.cuda.empty_cache()
     with phase("training"):
         flash_backward = check_flash_backward()
         counts_train, routes_train, step0 = train(card)
@@ -3106,7 +3425,7 @@ def main() -> int:
 
     def by_path(name):
         return {full.name: counts[name], moe_full.name: counts_moe[name],
-                **{arch: c[name] for arch, c in counts_family.items()},
+                **{arch: c[name] for arch, c in counts_family.items()}, ZAMBA2_ARCH: counts_zamba2[name],
                 f"train {TRAIN_ARCH}": counts_train[name], SHARDED_PATH: counts_sharded[name],
                 SPLIT_PATH: flash_split if name == "flash_attention" else 0,
                 SERVE_1X1_PATH: counts_serve[name],
@@ -3130,6 +3449,7 @@ def main() -> int:
         extra += [dict(x, shape=f"{moe_full.name}, group size 1: {x['shape']}") for x in g1.get("extra", [])]
         if name == "flash_attention":
             extra += flash_family + layout_flash
+        extra += zamba2_rows[name]
         entry["extra"] = [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "bound_ms": x["bound"][0],
                            "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in extra]
         entry["launches_by_path"] = by_path(name)
@@ -3173,6 +3493,17 @@ def main() -> int:
         "ulps": {str(T): u for T, u in moe_ulps.items()},
         "tol_ulps": {"gates_fp32": TOL_MOE_GATE_ULPS, "epilogue_bf16": TOL_MOE_EPILOGUE_ULPS},
     })
+    for name, source in (("mamba_step", "mamba_step"), ("rms_norm_rows", "mamba_step"), ("ssd_scan", "ssd_scan")):
+        first, *rest = zamba2_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}.cu", "replaces": REPLACES[name],
+            "launches": counts_zamba2[name], "shape": first["shape"], "max_abs_err": first["max_abs_err"],
+            "ulps": first["ulps"], "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+            **{k: first[k] for k in keys},
+            "extra": [{"shape": x["shape"], "max_abs_err": x["max_abs_err"], "ulps": x["ulps"],
+                       "bound_ms": x["bound"][0], "bound_by": x["bound"][1], **{k: x[k] for k in keys}} for x in rest],
+            "launches_by_path": by_path(name),
+        })
     kernels[3]["backward"] = [{"shape": x["shape"], "route": "pytorch ops (flash_attention_bwd)",
                                "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
                                "bound_ms": x["bound"][0], "bound_by": x["bound"][1],

@@ -509,6 +509,82 @@ def zamba2_7b_reduced() -> ModelConfig:
     )
 
 
+@dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """The published Zamba2 block (family "zamba2", ``models/zamba2.py``):
+    what ``ModelConfig`` does not say. A subclass, so that ``ModelConfig``
+    keeps the JAX package's fields one for one; each field defaults to what
+    the "hybrid" family computes.
+
+    ``head_dim`` is the shared attention's (its input is ``concat(x, x0)``,
+    2 x d wide); ``ssm.heads`` x ``ssm.head_dim`` is the Mamba inner width."""
+
+    ssm_groups: int = 1  # B and C groups: head h reads group h // (heads / groups)
+    conv_bias: bool = False
+    hybrid_layer_ids: Tuple[int, ...] = ()  # Mamba layers a shared block runs before
+    num_mem_blocks: int = 1  # shared blocks, taken in turn by the sites
+    adapter_rank: int = 0  # each site's LoRA on the FFN's gate/up projection
+    ffn_act: str = "silu"  # "silu" (SwiGLU) or "gelu" (the erf GELU)
+
+
+def zamba2_7b_instruct() -> Zamba2Config:
+    """Zamba2-7B-Instruct at its published widths and depth
+    (huggingface.co/Zyphra/Zamba2-7B-Instruct, config.json): 81 Mamba2
+    layers (112 heads of 64 in 2 groups, state 64, conv 4 with bias), two
+    shared blocks taken in turn by the 13 hybrid sites (32 heads of 224 over
+    concat(x, x0), GELU FFN of 14336 with a rank-128 adapter a site), tied
+    embedding, vocab 32000. Not in the registry: the JAX package has no
+    such model."""
+    return Zamba2Config(
+        name="zamba2-7b-instruct",
+        family="zamba2",
+        n_layers=81,
+        d_model=3584,
+        n_heads=32,
+        n_kv_heads=32,
+        head_dim=224,
+        d_ff=14_336,
+        vocab=32_000,
+        tie_embeddings=True,
+        rope_theta=10_000.0,
+        norm_eps=1e-5,
+        ssm=SSMConfig(kind="mamba2", heads=112, head_dim=64, state_dim=64, chunk=256, conv_dim=4, expand=2),
+        sub_quadratic=True,
+        ssm_groups=2,
+        conv_bias=True,
+        hybrid_layer_ids=(6, 11, 17, 23, 29, 35, 41, 47, 53, 59, 65, 71, 77),
+        num_mem_blocks=2,
+        adapter_rank=128,
+        ffn_act="gelu",
+    )
+
+
+def zamba2_tiny() -> Zamba2Config:
+    """The CPU tests' twin of ``zamba2_7b_instruct``: every mechanism (groups,
+    conv bias, two shared blocks over concat(x, x0), adapters) at a width and
+    depth a test runs in seconds."""
+    return Zamba2Config(
+        name="zamba2-tiny",
+        family="zamba2",
+        n_layers=7,
+        d_model=32,
+        n_heads=4,
+        n_kv_heads=4,
+        head_dim=16,
+        d_ff=48,
+        vocab=128,
+        tie_embeddings=True,
+        ssm=SSMConfig(kind="mamba2", heads=8, head_dim=8, state_dim=8, chunk=16, conv_dim=4, expand=2),
+        sub_quadratic=True,
+        ssm_groups=2,
+        conv_bias=True,
+        hybrid_layer_ids=(1, 3, 4, 6),
+        num_mem_blocks=2,
+        adapter_rank=4,
+        ffn_act="gelu",
+    )
+
+
 _REGISTRY: Dict[str, Tuple] = {
     "qwen2.5-32b": (qwen25_32b, qwen25_32b_reduced),
     "mistral-large-123b": (mistral_large_123b, mistral_large_123b_reduced),

@@ -29,11 +29,13 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.kv_log_append.ops import qkv_log_append
 from repro_torch.kernels.log_compact.ops import log_compact_tiers
+from repro_torch.kernels.mamba_step.ops import rms_norm_rows
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.models import zamba2
 from repro_torch.models.api import ModelSpec
 from repro_torch.models.common import layer_stack
 from repro_torch.models.dense import _attn_params, _ffn, unembed
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import AttnParams, rmsnorm
 
 State = Dict[str, Any]
 
@@ -55,8 +57,20 @@ class TieredKVConfig:
         return self.max_requests * self.max_pages_per_req
 
 
+def attention_calls(cfg: ModelConfig) -> int:
+    """The K/V caches a token writes: one a layer for the decoder families,
+    one a shared-block invocation for "zamba2". Pools and log are stacked
+    over them."""
+    return zamba2.attention_calls(cfg) if cfg.family == "zamba2" else cfg.n_layers
+
+
 def init_state(kv_cfg: TieredKVConfig, cfg: ModelConfig, dtype=torch.float32, device="cuda") -> State:
-    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    """The tiers, the log and the page metadata; for "zamba2" also each
+    request's recurrent state, ``conv`` (L, slots, W-1, C) in ``dtype`` and
+    ``ssm`` (L, slots, H, P, N) fp32, one slot a request (by id) and a last,
+    scratch slot for padded rows: byte-granular hot data that stays resident
+    for the request's life, beside the page policy."""
+    L, KV, hd = attention_calls(cfg), cfg.n_kv_heads, cfg.resolved_head_dim
     c = kv_cfg
     shape_pool = (L, c.n_hbm_pages, c.page_size, KV, hd)
     shape_host = (L, c.n_host_pages, c.page_size, KV, hd)
@@ -64,7 +78,7 @@ def init_state(kv_cfg: TieredKVConfig, cfg: ModelConfig, dtype=torch.float32, de
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    return {
+    state = {
         "hbm_k": zeros(shape_pool),
         "hbm_v": zeros(shape_pool),
         "host_k": zeros(shape_host),
@@ -79,6 +93,27 @@ def init_state(kv_cfg: TieredKVConfig, cfg: ModelConfig, dtype=torch.float32, de
         # positions >= compacted live in the write log (disjointness)
         "compacted": zeros((c.max_requests,), torch.int32),
     }
+    if cfg.family == "zamba2":
+        H, P, N, _, W, _, C = zamba2.widths(cfg)
+        slots = c.max_requests + 1
+        state["conv"] = zeros((cfg.n_layers, slots, W - 1, C))
+        state["ssm"] = zeros((cfg.n_layers, slots, H, P, N), torch.float32)
+    return state
+
+
+def state_slot_bytes(state: State) -> int:
+    """One slot's recurrent state over every layer (0 without one)."""
+    if "ssm" not in state:
+        return 0
+    return sum(state[k][:, 0].numel() * state[k].element_size() for k in ("conv", "ssm"))
+
+
+def write_prefill_states(state: State, req: int, conv, ssm) -> State:
+    """A prefill's conv windows (L, W-1, C) and SSM states (L, H, P, N) into
+    the request's slot."""
+    state["conv"][:, req] = conv.to(state["conv"].dtype)
+    state["ssm"][:, req] = ssm
+    return state
 
 
 def host_slot(kv_cfg: TieredKVConfig, req: int, logical: int) -> int:
@@ -119,9 +154,10 @@ def write_prefill_pages(kv_cfg: TieredKVConfig, state: State, req: int, k, v) ->
 
 
 def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
-    """Decode step over the tiered KV state for the decoder families
-    (dense, moe, vlm: GQA attention, then SwiGLU or the MoE layer, whose
-    aux loss is dropped as in JAX). Returns
+    """Decode step over the tiered KV state, chosen once by family: "zamba2"
+    takes ``build_zamba2_decode_step``; the decoder families (dense, moe,
+    vlm: GQA attention, then SwiGLU or the MoE layer, whose aux loss is
+    dropped as in JAX) the step below. Returns
     step(params, state, tokens, req_ids) -> (next_tokens, state).
 
     The current token's K/V is appended to the write log, layer by layer
@@ -131,6 +167,8 @@ def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
     Attention reads pages + log in parallel (the paper's read path).
     ``state`` is updated in place.
     """
+    if spec.cfg.family == "zamba2":
+        return build_zamba2_decode_step(spec, kv_cfg)
     cfg = spec.cfg
 
     def step(params, state: State, tokens: torch.Tensor, req_ids: torch.Tensor):
@@ -166,6 +204,64 @@ def build_paged_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
         # first index among exact ties, as jnp.argmax
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
+        state["log_tail"] = tail + B
+        state["lengths"].index_add_(0, safe_req, live.to(torch.int32))
+        return next_tok, state
+
+    return step
+
+
+def build_zamba2_decode_step(spec: ModelSpec, kv_cfg: TieredKVConfig):
+    """Decode step of the "zamba2" family over the tiered KV of the shared
+    blocks' invocations and the per-request state slots. Per Mamba layer i:
+    at a hybrid site j, ``qkv_log_append`` into call j's log (RoPE; the
+    score scale folded into q after it), ``paged_decode_attention`` over
+    pages and log, the block's FFN with site j's adapter, ``Wlin_j``, and
+    m = x + t; then x += the layer's ``mamba_step`` over m, each row
+    reading and writing its request's slot (a padded row the scratch slot).
+    Returns step(params, state, tokens, req_ids) -> (next_tokens, state)."""
+    cfg = spec.cfg
+    site_of = {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+    stacks = [None, None]  # (params, their per-layer views): the views made once, not every step
+
+    def step(params, state: State, tokens: torch.Tensor, req_ids: torch.Tensor):
+        if stacks[0] is not params:
+            stacks[:] = params, tuple(layer_stack(params, k) for k in ("mamba", "shared", "sites"))
+        mamba, shared, sites = stacks[1]
+        on = torch.autograd._profiler_enabled()
+        B = tokens.shape[0]
+        live = req_ids >= 0
+        safe_req = req_ids.clamp(min=0).long()
+        lengths = torch.where(live, state["lengths"][safe_req], 0)
+        compacted = torch.where(live, state["compacted"][safe_req], 0)
+        page_table = state["page_table"][safe_req]
+        x0 = params["embed"][tokens[:, 0]]  # (B, d)
+        tail = state["log_tail"]
+        meta_pos = torch.where(live, lengths, -1)
+        lengths1 = lengths + 1
+        x = x0
+        for i, p in enumerate(mamba):
+            m = x
+            if i in site_of:
+                j = site_of[i]
+                sp = shared[j % cfg.num_mem_blocks]
+                with zamba2.span(on, "model.shared_attn", f"site={j}" if on else ""):
+                    u = rms_norm_rows(torch.cat([x, x0], dim=-1), sp["attn_norm"], cfg.norm_eps)[:, None]
+                    ap = AttnParams(wq=sp["wq"], wk=sp["wk"], wv=sp["wv"], wo=sp["wo"])
+                    q, _ = qkv_log_append(
+                        cfg, ap, u @ ap.wq, u @ ap.wk, u @ ap.wv, lengths, state["log_k"][j], state["log_v"][j],
+                        state["log_meta"], tail, req_ids, meta_pos,
+                    )
+                    o = paged_decode_attention(
+                        zamba2.scale_q(q), state["hbm_k"][j], state["hbm_v"][j], page_table, lengths1,
+                        state["log_k"][j], state["log_v"][j], state["log_meta"], page_lengths=compacted,
+                        req_ids=req_ids,
+                    )
+                    m = zamba2.block_ffn(cfg, sp, sites[j], o.reshape(B, -1) @ sp["wo"], x)
+            with zamba2.span(on, "model.mamba"):
+                x = zamba2.decode_mamba(cfg, p, x, m, state["conv"][i], state["ssm"][i], req_ids)
+        logits = unembed(cfg, params, x)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         state["log_tail"] = tail + B
         state["lengths"].index_add_(0, safe_req, live.to(torch.int32))
         return next_tok, state

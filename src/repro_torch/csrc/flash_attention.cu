@@ -204,12 +204,16 @@ __global__ void __launch_bounds__(FA_THREADS)
 namespace tc {
 constexpr int BQ = 64;        // query rows per block (one wgmma M)
 constexpr int BK = 64;        // keys per K/V tile
-constexpr int NWG = 3;                   // consumer warpgroups, taking key tiles in turn
-constexpr int THREADS = NWG * 128 + 32;  // consumer warpgroups, then the producer warp
-constexpr int STAGES = 2 * NWG;          // K/V ring depth: two tiles for each warpgroup
 
+// HD 256 (hd 224 on zero-filled columns: Zamba2-7B's shared attention)
+// holds a 64 x 256 fp32 accumulator a warpgroup: two consumer warpgroups keep
+// it in registers (three would cap a thread at 152 and spill), and two
+// stages of 32 KB K and V tiles fit the shared memory beside Q.
 template <int HD>
 struct Cfg {
+  static constexpr int NWG = HD > 128 ? 2 : 3;            // consumer warpgroups, taking key tiles in turn
+  static constexpr int THREADS = NWG * 128 + 32;          // consumer warpgroups, then the producer warp
+  static constexpr int STAGES = HD > 128 ? 2 : 2 * NWG;   // K/V ring depth
   static constexpr int W = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span (bytes of a row block)
   static constexpr int E = W / 2;                         // bf16 elements of a row block
   static constexpr int CB = HD / E;                       // row blocks of a head vector
@@ -238,7 +242,10 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
 
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db) {
-  if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (HD == 256) {  // two n128 halves: head dims 128.. start two row blocks on
+    wgmma_rs_n128(o, a, db);
+    wgmma_rs_n128(o + 64, a, db + ((2 * 64 * Cfg<HD>::W) >> 4));
+  } else if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
   else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
   else if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
   else wgmma_rs_n16(o, a, db);
@@ -256,13 +263,14 @@ __device__ __forceinline__ void issue_qk(float* sc, uint32_t q_tile, uint32_t k_
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<HD>::THREADS)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  __nv_bfloat16* __restrict__ out, int S, int S_kv, int H, int KV,
                                  int hd, int causal, float scale_log2) {
   using C = Cfg<HD>;
+  constexpr int NWG = C::NWG, STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t q_s = (raw + 1023u) & ~1023u;  // swizzled tiles need 1024-byte alignment
@@ -477,7 +485,7 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(H, (S + BQ - 1) / BQ, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
-  flash_attention_wgmma_kernel<HD><<<grid, THREADS, C::SMEM, stream>>>(
+  flash_attention_wgmma_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, S_kv, H, KV, hd, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -503,8 +511,9 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 on the tensor cores; hd in {16, 32, 64, 112, 128} (112: zamba2-7b's
-// shared attention, on the 128 instantiation).
+// bf16 on the tensor cores; hd in {16, 32, 64, 112, 128, 224} (112: the
+// hybrid zamba2-7b's shared attention, on the 128 instantiation; 224:
+// Zamba2-7B-Instruct's, on the 256 one).
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                           int B, int S, int S_kv, int H, int KV, int hd,
                                           int causal, void* stream) {
@@ -516,6 +525,7 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const vo
     case 64: return tc::launch<64>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
     case 112:
     case 128: return tc::launch<128>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
+    case 224: return tc::launch<256>(q, k, v, out, B, S, S_kv, H, KV, hd, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

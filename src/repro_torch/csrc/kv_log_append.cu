@@ -31,7 +31,10 @@
 // kernel matches the plain version bit for bit where torch sums that way;
 // the stated tolerance is 1 ulp of the storage type. A RoPE pair (e,
 // e + hd/2) sits in one lane for hd = 64 and in lanes t, t ^ lanes/2
-// otherwise. Without the epilogue (the standalone append) rows are copied
+// otherwise. hd = 224 (Zamba2-7B's shared attention; RoPE and bias, no
+// qk-norm, which the wrapper refuses there) takes 7 neighbouring elements a
+// lane, 7t .. 7t + 6, so that pair partners sit in lanes t, t ^ 16 at the
+// same register. Without the epilogue (the standalone append) rows are copied
 // as 16-byte vectors. The tail is a host integer the engine already knows;
 // the wrappers check that tail + B <= S.
 #include "common.cuh"
@@ -108,7 +111,7 @@ __global__ void __launch_bounds__(128) kv_log_append_kernel(AppendArgs a) {
   } else {
     int e[N];  // this lane's elements of the row
 #pragma unroll
-    for (int j = 0; j < N; ++j) e[j] = N == 4 ? 4 * t + j : t + lanes * j;
+    for (int j = 0; j < N; ++j) e[j] = (N == 4 || N == 7) ? N * t + j : t + lanes * j;
     // every load first: the row, its bias and gain, positions and freqs
     float x[N], bx[N], g[N], f[N];
 #pragma unroll
@@ -159,13 +162,15 @@ static cudaError_t launch(const AppendArgs& a, int n, unsigned grid, cudaStream_
     case 1: kv_log_append_kernel<T, 1><<<grid, 128, 0, st>>>(a); break;
     case 2: kv_log_append_kernel<T, 2><<<grid, 128, 0, st>>>(a); break;
     case 4: kv_log_append_kernel<T, 4><<<grid, 128, 0, st>>>(a); break;
+    case 7: kv_log_append_kernel<T, 7><<<grid, 128, 0, st>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
 // freqs NULL: the standalone append (no epilogue; q_in, q_out, biases and
-// gains unused). Otherwise seg = hd must be 8, 16, 32, 64 or 128.
+// gains unused). Otherwise seg = hd must be 8, 16, 32, 64, 128 or 224
+// (224 without qk-norm gains).
 extern "C" int repro_kv_log_append(void* log_k, void* log_v, void* log_meta, void* q_out,
                                    const void* q_in, const void* k_in, const void* v_in,
                                    const void* bq, const void* bk, const void* bv,

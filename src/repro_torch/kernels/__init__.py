@@ -24,6 +24,13 @@ Kernels (each replaces one Pallas TPU kernel of ``repro.kernels``):
                     slots, dispatch, SwiGLU epilogue and combine around the
                     expert GEMMs, five launches a ``moe_ffn`` call; where
                     autograd records a graph, a plain-op backward
+  mamba_step      — replaces no Pallas kernel: one decode token of a Mamba2
+                    layer (conv, decay, state update, C.S + D x, gate, group
+                    norm) over per-request state slots, in place; one launch
+                    a layer
+  ssd_scan        — replaces no Pallas kernel: a Mamba2 layer's prefill scan
+                    (the chunked SSD from a zero state, and D x), one launch
+                    a layer
 """
 from __future__ import annotations
 
@@ -34,8 +41,10 @@ def _wrappers():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.kv_log_append.ops import kv_log_append
     from repro_torch.kernels.log_compact.ops import log_compact
+    from repro_torch.kernels.mamba_step.ops import mamba_step, rms_norm_rows
     from repro_torch.kernels.moe_routing import ops as moe_routing
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     return {
         "paged_attention": paged_decode_attention,
@@ -43,13 +52,19 @@ def _wrappers():
         "kv_log_append": kv_log_append,
         "flash_attention": flash_attention,
         "moe_routing": moe_routing.counts,
+        "mamba_step": mamba_step,
+        "rms_norm_rows": rms_norm_rows,
+        "ssd_scan": ssd_scan,
     }
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name (paged attention: calls of the
     op, two launches each; kv_log_append and log_compact: launches of either
-    entry point; moe_routing: launches of its five kernels)."""
+    entry point; moe_routing: launches of its five kernels; mamba_step: its
+    launches, one a Mamba layer a decode step; rms_norm_rows: its launches,
+    the "zamba2" decode step's norms; ssd_scan: its launches, one a Mamba
+    layer a "zamba2" prefill)."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 

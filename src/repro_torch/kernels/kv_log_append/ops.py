@@ -31,8 +31,10 @@ from repro_torch.models.layers import AttnParams, rope_freqs
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [_build.P] * 16 + [_build.I] * 8 + [_build.F32, _build.P]
 # head dims of the fused epilogue: min(hd, 32) lanes a head row, hd / lanes
-# in {1, 2, 4} elements a lane, in the order torch's CUDA reduction sums them
-_HEAD_DIMS = (8, 16, 32, 64, 128)
+# in {1, 2, 4} elements a lane, in the order torch's CUDA reduction sums them;
+# 224 (7 a lane) without qk-norm, whose sum the kernel does not order there
+_HEAD_DIMS = (8, 16, 32, 64, 128, 224)
+_NORM_HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,6 +128,8 @@ def qkv_log_append(
             raise ValueError("qkv_log_append: give all three biases or none")
         if (p.q_norm is None) != (p.k_norm is None):
             raise ValueError("qkv_log_append: give both qk-norm gains or neither")
+        if p.q_norm is not None and hd not in _NORM_HEAD_DIMS:
+            raise ValueError(f"qkv_log_append: qk-norm at head dim {hd} not in {_NORM_HEAD_DIMS}")
         if p.bq is not None:
             checks += [("bq", p.bq, (H * hd,), dt), ("bk", p.bk, (KV * hd,), dt), ("bv", p.bv, (KV * hd,), dt)]
         if p.q_norm is not None:

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig, ShapeConfig
-from repro_torch.models import common, dense, encdec, mamba2, rwkv6
+from repro_torch.models import common, dense, encdec, mamba2, rwkv6, zamba2
 from repro_torch.models.layers import split_model
 
 _FAMILY = {
@@ -27,6 +27,7 @@ _FAMILY = {
     "encdec": encdec,
     "ssm": rwkv6,
     "hybrid": mamba2,
+    "zamba2": zamba2,
 }
 
 
@@ -109,6 +110,8 @@ class ModelSpec:
             names = ("k", "v", "ck", "cv")
         elif fam == "ssm":
             names = ("tm_prev", "cm_prev", "wkv")
+        elif fam == "zamba2":  # the sites' K/V, then each layer's conv window and SSM state
+            names = ("k", "v", "conv", "ssm")
         else:  # hybrid; the attention caches only with a shared block
             names = ("conv", "ssm", "attn_k", "attn_v")[:len(collected)]
         cache = {**dict(zip(names, collected)), "length": S}

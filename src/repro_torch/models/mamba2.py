@@ -33,7 +33,7 @@ block's K/V cache is sequence-sharded as dense's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -103,66 +103,77 @@ def _split_counts(cfg: ModelConfig) -> Tuple[int, int, int]:
     return n_super, every, cfg.n_layers - n_super * every
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, S, Ch), w: (Ch, W), prev: (B, W-1, Ch).
-    The W taps are summed in fp32 in tap order, then silu, then the cast."""
-    W, S = w.shape[-1], x.shape[1]
-    xp = torch.cat([prev, x], dim=1)
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for i in range(W):
-        out = out + xp[:, i:i + S].float() * w[:, i].float()
-    return F.silu(out).to(x.dtype)
+def causal_conv(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """silu(depthwise causal conv + bias). x: (B, S, Ch), w: (Ch, W), prev:
+    (B, W-1, Ch) the carried window (zeros when None), bias: (Ch,) or None.
+    The W taps of each position are summed in fp32 by one reduction (a few
+    launches for any W), the bias added after them, then silu, then the cast
+    to x's dtype."""
+    W = w.shape[-1]
+    xp = F.pad(x, (0, 0, W - 1, 0)) if prev is None else torch.cat([prev, x], dim=1)
+    acc = (xp.unfold(1, W, 1).float() * w.float()).sum(-1)  # (B, S, Ch), tap 0 the oldest
+    if bias is not None:
+        acc = acc + bias.float()
+    return F.silu(acc).to(x.dtype)
 
 
 def ssd_chunked(
     xh: torch.Tensor,  # (B, S, H, P) fp32, not yet scaled by dt
     dt: torch.Tensor,  # (B, S, H) fp32, after the softplus
     loga: torch.Tensor,  # (B, S, H) <= 0: per-token log decay
-    Bm: torch.Tensor,  # (B, S, N)
-    Cm: torch.Tensor,  # (B, S, N)
+    Bm: torch.Tensor,  # (B, S, N) shared by every head, or (B, S, G, N): G groups
+    Cm: torch.Tensor,  # as Bm
     state0: torch.Tensor,  # (B, H, P, N)
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan. Returns (y (B, S, H, P), state (B, H, P, N))."""
+    """Chunked SSD scan. Returns (y (B, S, H, P), state (B, H, P, N)). With B
+    and C in G groups head h reads group h // (H / G); 3-D B and C are one
+    group. Evaluated for every chunk at once, laid out head-major (B, H,
+    chunks, C, .): each chunk's output from a zero state and its own share of
+    the state at its end are batched matmuls over all chunks; only the state
+    entering each chunk is carried by a loop over chunks (two ops a chunk),
+    and its share of the output is one more batched matmul. The same sums as
+    the chunk-by-chunk recurrence, in fp32."""
+    if Bm.dim() == 3:
+        Bm, Cm = Bm[:, :, None], Cm[:, :, None]
     B, S, H, P = xh.shape
-    N = Bm.shape[-1]
+    G, N = Bm.shape[-2:]
     C = min(chunk, S)
     pad = (-S) % C
     if pad:
         xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
         dt, loga = F.pad(dt, (0, 0, 0, pad)), F.pad(loga, (0, 0, 0, pad))
-        Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
+        Bm, Cm = F.pad(Bm, (0, 0, 0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, 0, 0, pad))
     NC = xh.shape[1] // C
-    xc = xh.reshape(B, NC, C, H, P).transpose(0, 1)
-    dtc, lac = dt.reshape(B, NC, C, H).transpose(0, 1), loga.reshape(B, NC, C, H).transpose(0, 1)
-    Bc, Cc = Bm.reshape(B, NC, C, N).transpose(0, 1), Cm.reshape(B, NC, C, N).transpose(0, 1)
+    group = torch.arange(H, device=xh.device) // (H // G)  # each head's group
+
+    def head_major(t):  # (B, S, H, ...) -> (B, H, NC, C, ...)
+        return t.transpose(1, 2).reshape(B, H, NC, C, *t.shape[3:])
+
+    cum = torch.cumsum(head_major(loga), dim=-1)  # (B, H, NC, C) inclusive, within each chunk
+    dtx = head_major(xh * dt[..., None])  # (B, H, NC, C, P)
+    Bh, Ch = head_major(Bm[:, :, group]), head_major(Cm[:, :, group])  # (B, H, NC, C, N)
     idx = torch.arange(C, device=xh.device)
-    lower = (idx[:, None] >= idx[None, :])[None, :, :, None]  # j <= i, diagonal included
-    state = state0.float()
-    ys = []
+    upper = idx[None, :] > idx[:, None]  # j > i
+    # within a chunk: y_i = sum_{j <= i} exp(cum_i - cum_j) (C_i . B_j) dtx_j. Masked
+    # before the exp, so the pairs above the diagonal (which overflow to inf beyond
+    # ~88) give a gradient of 0, not 0 * inf = NaN
+    decay = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper, float("-inf")).exp_()
+    y = (Ch @ Bh.transpose(-1, -2)).mul_(decay) @ dtx  # (B, H, NC, C, P)
+    del decay
+    # each chunk's own share of the state at its end: sum_j exp(cum_C - cum_j) dtx_j (x) B_j
+    total = cum[..., -1:]
+    local = (dtx * (total - cum).exp_()[..., None]).transpose(-1, -2) @ Bh  # (B, H, NC, P, N)
+    # the state entering each chunk: S_n = exp(cum_C of chunk n - 1) S_{n-1} + local_{n-1}
+    carry = total[..., 0].exp()  # (B, H, NC)
+    state, entering = state0.float(), []
     for n in range(NC):
-        xb, dtb, lab, Bb, Cb = xc[n], dtc[n], lac[n], Bc[n], Cc[n]
-        cum = torch.cumsum(lab, dim=1)  # (B, C, H) inclusive
-        diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Ci, Cj, H), <= 0 on the mask
-        # masked before the exp: the same numbers as JAX's where(lower,
-        # exp(diff), 0), but the pairs above the diagonal (diff > 0, which
-        # overflows to inf beyond ~88) give a gradient of 0, not 0 * inf = NaN
-        decay = torch.exp(torch.where(lower, diff, float("-inf")))
-        cb = Cb @ Bb.transpose(1, 2)  # (B, Ci, Cj), shared by the heads
-        dtx = xb * dtb[..., None]  # (B, C, H, P)
-        # y_i = sum_j cb_ij decay_ijh dtx_jh in two explicit steps: a
-        # three-operand einsum may build a (B, C, C, H, P) fp32 intermediate
-        w = (cb[..., None] * decay).permute(0, 3, 1, 2)  # (B, H, Ci, Cj)
-        y = (w @ dtx.transpose(1, 2)).transpose(1, 2)  # (B, Ci, H, P)
-        # the initial state's share: y_i += exp(cum_i) C_i . S0
-        y = y + torch.einsum("bin,bhpn->bihp", Cb, state) * torch.exp(cum)[..., None]
-        # S' = exp(cum_C) S0 + sum_j exp(cum_C - cum_j) dtx_j (x) B_j
-        total = cum[:, -1:, :]  # (B, 1, H)
-        wd = torch.exp(total - cum)  # (B, C, H)
-        state = torch.exp(total[:, 0, :, None, None]) * state + torch.einsum(
-            "bjhp,bjn->bhpn", dtx * wd[..., None], Bb)
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, NC * C, H, P)
+        entering.append(state)
+        state = state * carry[:, :, n, None, None] + local[:, :, n]
+    # its share of the output: y_i += exp(cum_i) C_i . S_entering
+    y += (Ch @ torch.stack(entering, dim=2).transpose(-1, -2)) * cum.exp()[..., None]
+    y = y.reshape(B, H, NC * C, P).transpose(1, 2)
     return y[:, :S], state
 
 

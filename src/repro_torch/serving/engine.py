@@ -24,7 +24,8 @@ tokens) and a prefill once (its first token).
 
 Observability: ``EngineCounters`` (``eng.counters``, always on) splits each
 step's host time into policy, dispatch and read-back and counts the bytes
-the tiers move. Under a running torch.profiler, admissions and steps open
+the tiers move and, for a family with recurrent state, the state bytes the
+decode steps read and write. Under a running torch.profiler, admissions and steps open
 host ranges named ``engine.<phase>`` (args ``rid=<rid>`` or
 ``step=<clock>``, recorded with ``record_shapes``); with no profiler they
 open nothing.
@@ -88,6 +89,10 @@ class EngineCounters:
     promoted_bytes: int = 0  # whole pages copied host tier -> fast pool
     flushed_host_bytes: int = 0  # log rows compaction writes into the host tier
     demand_pages: int = 0  # pages below active requests' watermarks, over decoding steps
+    # recurrent state (conv windows and SSM states, "zamba2") the decode steps
+    # read and write: each row of a step's batch reads and writes its slot once
+    # (a padded row the scratch slot)
+    state_bytes: int = 0
 
 
 _OFF = contextlib.nullcontext()
@@ -118,6 +123,7 @@ class TieredEngine:
         # one position's K and V over every layer (a log row), as the host tier holds it
         host = self.state["host_k"]
         self._row_bytes = 2 * host[:, 0, 0].numel() * host.element_size()
+        self._slot_bytes = tiering.state_slot_bytes(self.state)
         self._clock = 0
         # host copies of the device state the policy reads (no device syncs)
         self.page_table = np.full((kv_cfg.max_requests, kv_cfg.max_pages_per_req), -1, np.int32)
@@ -159,6 +165,8 @@ class TieredEngine:
                 # initial placement: prompt KV lands in the HOST tier (the paper's
                 # "all data starts in the CXL-SSD")
                 tiering.write_prefill_pages(self.kv, self.state, rid, k, v)
+                if "ssm" in cache:  # the recurrent state into the request's slot
+                    tiering.write_prefill_states(self.state, rid, cache["conv"][:, 0], cache["ssm"][:, 0])
             self.lengths[rid] = self.compacted[rid] = len(req.prompt)
             # the prompt's next token comes from the prefill logits
             with _span(on, "engine.first_token", tag):
@@ -309,6 +317,7 @@ class TieredEngine:
         # 4. decode one token for the batch
         c = self.counters
         c.demand_pages += demand
+        c.state_bytes += 2 * B * self._slot_bytes
         t0 = time.perf_counter_ns()
         with _span(on, "engine.decode", tag):
             next_tok, self.state = self.step_fn(

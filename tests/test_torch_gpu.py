@@ -12,6 +12,8 @@ test_torch_mean_sums_as_the_fused_kernel). bf16 flash attention runs
 on the tensor-core route and fp32 on the CUDA-core route; the tests assert
 which.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -473,7 +475,8 @@ def test_moe_engine_on_the_card(cuda, arch, monkeypatch):
     layers_, steps = spec.cfg.n_layers, stats["cuda"]["steps"]
     assert counts["cuda"] == {"paged_attention": layers_ * steps, "kv_log_append": layers_ * steps,
                               "flash_attention": layers_ * len(prompts), "log_compact": stats["cuda"]["compactions"],
-                              "moe_routing": 5 * layers_ * (steps + len(prompts))}
+                              "moe_routing": 5 * layers_ * (steps + len(prompts)), "mamba_step": 0,
+                              "rms_norm_rows": 0, "ssd_scan": 0}
     assert route_counts()["tensor_core"] == layers_ * len(prompts)
     assert stats["cuda"] == stats["cpu"]
     forced = {rid: eng.requests[rid].out for rid in prompts}
@@ -1106,3 +1109,178 @@ def test_moe_ffn_autograd_path(cuda, monkeypatch):
         rel = float((a.float() - b.float()).norm() / b.float().norm())
         print(f"{name}: gradient {rel:.2e} of its norm from the plain version's")
         assert bool(torch.isfinite(a).all()) and rel <= 1e-2, (name, rel)
+
+
+# ---- Zamba2-7B-Instruct: head dim 224, the Mamba2 decode kernel ----------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_qkv_log_append_hd224(cuda, bias, dtype):
+    """The fused epilogue at Zamba2-7B-Instruct's shared attention (32 heads
+    of 224, RoPE, no qk-norm; 192 log slots) against its plain version: q and
+    the log within 1 bf16 ulp (fp32: 1e-5), meta exact, one launch a call."""
+    L, S, B, H, KV, hd, tail = 2, 192, 16, 32, 32, 224, 40
+    rng = np.random.default_rng(224 + bias)
+    cfg, layers, (lk, lv), req, pos, meta_pos = _epilogue_case(rng, cuda, dtype, L, S, B, H, KV, hd, bias, False)
+    outs, qs = [], []
+    reset_launch_counts()
+    for fn in (qkv_log_append, qkv_log_append_ref):
+        k_log, v_log, meta = lk.clone(), lv.clone(), torch.full((S, 2), -1, dtype=torch.int32, device=cuda)
+        qs.append(torch.stack([fn(cfg, p, *raw, pos, k_log[layer], v_log[layer], meta, tail, req, meta_pos)[0]
+                               for layer, (raw, p) in enumerate(layers)]))
+        outs.append((k_log, v_log, meta))
+    assert launch_counts()["kv_log_append"] == L
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][2], outs[1][2])
+    for got, want in ((qs[0], qs[1]), (outs[0][0], outs[1][0]), (outs[0][1], outs[1][1])):
+        assert torch.isfinite(got).all()
+        if dtype == "bfloat16":
+            assert _bf16_ulps(got, want) <= 1
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,KV,causal", [(2, 13, 4, 4, True), (2, 381, 4, 2, True), (1, 1100, 4, 4, True),
+                                              (2, 103, 4, 4, False), (1, 768, 32, 32, True)])
+def test_flash_attention_hd224(cuda, B, S, H, KV, causal):
+    """Head dim 224 (Zamba2-7B-Instruct's shared attention) on the tensor-core
+    route: the 256 instantiation over zero-filled columns; the last shape is
+    a full-width prefill of the cell's median prompt."""
+    rng = np.random.default_rng(S * 10 + H)
+    q = _rand(rng, (B, S, H, 224), "bfloat16", cuda)
+    k, v = _rand(rng, (B, S, KV, 224), "bfloat16", cuda), _rand(rng, (B, S, KV, 224), "bfloat16", cuda)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert route_counts() == {"tensor_core": 1, "cuda_core": 0}
+    _close(got, flash_attention_ref(q, k, v, causal=causal), 3e-2)
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    torch.cuda.synchronize()
+    return hashlib.sha256(t.contiguous().view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# The tensor-core route's outputs at hd 64, 112 and 128 on fixed inputs, read
+# on the card from the kernel as it was before the 256 instantiation: adding
+# hd 224 leaves the other instantiations' bits alone.
+FLASH_BITS = {64: "50ecaad45be61595", 112: "ddd906b73c1a9c71", 128: "6eed9298dcb8d8fc"}
+
+
+@pytest.mark.parametrize("hd", sorted(FLASH_BITS))
+def test_flash_attention_bits_unchanged(cuda, hd):
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    q, k, v = (torch.randn((2, 381, 8, hd), generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    assert _digest(flash_attention(q, k, v, causal=True)) == FLASH_BITS[hd]
+
+
+def _mamba_case(dev, B, slots, H=112, P=64, N=64, G=2, W=4, seed=0):
+    """Weights, an in-projection row a batch row and filled slots at
+    Zamba2-7B-Instruct's widths (A_log and dt_bias drawn as Mamba2 does)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    inner, C = H * P, H * P + 2 * G * N
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    bf = torch.bfloat16
+    w = dict(conv_w=rnd(C, W, scale=0.3).to(bf), conv_b=rnd(C, scale=0.1).to(bf),
+             dt_bias=torch.log(torch.expm1(torch.exp(torch.rand(H, generator=g) * (math.log(0.1) - math.log(1e-3))
+                                                     + math.log(1e-3)))).to(dev, bf),
+             A_log=torch.log(1 + 15 * torch.rand(H, generator=g)).to(dev, bf),
+             D=(1 + 0.1 * rnd(H)).to(bf), norm_w=(1 + 0.1 * rnd(inner)).to(bf))
+    zx = rnd(B, 2 * inner + 2 * G * N + H).to(bf)
+    conv = rnd(slots, W - 1, C).to(bf)
+    ssm = rnd(slots, H, P, N, scale=0.5)
+    return w, zx, conv, ssm
+
+
+def test_mamba_step_kernel(cuda):
+    """One decode token of a Mamba2 layer at published widths (B 16, 112
+    heads of 64 in 2 groups, state 64, conv 4 with bias), rows in scattered
+    slots and two padded rows: against the plain version, the new SSM states
+    within 1e-6 relative (the plain version's rounding points, expf and
+    log1pf against torch's), the conv windows exact, y within 2 bf16 ulps
+    (the sums' order differs); every slot no live row names untouched but
+    the scratch slot; one launch."""
+    from repro_torch.kernels.mamba_step.ops import mamba_step
+    from repro_torch.kernels.mamba_step.ref import mamba_step_ref
+
+    B, slots = 16, 33
+    w, zx, conv, ssm = _mamba_case(cuda, B, slots)
+    req = torch.tensor([3, 17, -1, 0, 31, 5, 9, 12, 20, -1, 22, 25, 27, 29, 30, 1], dtype=torch.int32, device=cuda)
+    args = (w["conv_w"], w["conv_b"], w["dt_bias"], w["A_log"], w["D"], w["norm_w"], req)
+    reset_launch_counts()
+    states = []
+    for fn in (mamba_step, mamba_step_ref):
+        c, s = conv.clone(), ssm.clone()
+        y = fn(zx, c, s, *args, groups=2)
+        states.append((y, c, s))
+    assert launch_counts()["mamba_step"] == 1
+    (y, c, s), (y_ref, c_ref, s_ref) = states
+    live = req[req >= 0].long()
+    untouched = torch.ones(slots, dtype=torch.bool, device=cuda)
+    untouched[live] = False
+    untouched[-1] = False
+    torch.cuda.synchronize()
+    assert torch.equal(c[untouched], conv[untouched]) and torch.equal(s[untouched], ssm[untouched])
+    assert torch.equal(c[live], c_ref[live])
+    torch.testing.assert_close(s[live], s_ref[live], rtol=1e-6, atol=1e-6)
+    assert _bf16_ulps(y[req >= 0], y_ref[req >= 0]) <= 2
+
+
+def test_mamba_step_padded_rows_only_touch_the_scratch_slot(cuda):
+    """A batch of padded rows only: every live slot bit-equal after the
+    launch."""
+    from repro_torch.kernels.mamba_step.ops import mamba_step
+
+    B, slots = 4, 9
+    w, zx, conv, ssm = _mamba_case(cuda, B, slots, seed=1)
+    req = torch.full((B,), -1, dtype=torch.int32, device=cuda)
+    c, s = conv.clone(), ssm.clone()
+    mamba_step(zx, c, s, w["conv_w"], w["conv_b"], w["dt_bias"], w["A_log"], w["D"], w["norm_w"], req, groups=2)
+    torch.cuda.synchronize()
+    assert torch.equal(c[:-1], conv[:-1]) and torch.equal(s[:-1], ssm[:-1])
+
+
+@pytest.mark.parametrize("B,S", [(1, 768), (1, 300), (2, 517)])
+def test_ssd_scan_kernel(cuda, B, S):
+    """A Mamba2 layer's prefill scan at published widths (112 heads of 64 in
+    2 groups, state 64, chunk 256; S a multiple of the chunk or not) with
+    Mamba2's decays: y and the final state within 1e-4 of |plain| + 1 (fp32
+    sums in another order); one launch."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    H, P, N, G = 112, 64, 64, 2
+    g = torch.Generator(device=cuda).manual_seed(S)
+    xbc = torch.randn(B, S, H * P + 2 * G * N, generator=g, device=cuda)
+    xbc = torch.nn.functional.silu(xbc).to(torch.bfloat16)
+    dt = torch.exp(torch.rand(B, S, H, generator=g, device=cuda) * math.log(100) + math.log(1e-3))
+    loga = dt * -(1 + 15 * torch.rand(H, generator=g, device=cuda))
+    D = (1 + 0.1 * torch.randn(H, generator=g, device=cuda)).to(torch.bfloat16)
+    kw = dict(heads=H, groups=G, state_dim=N, chunk=256)
+    reset_launch_counts()
+    y, state = ssd_scan(xbc, dt, loga, D, **kw)
+    assert launch_counts()["ssd_scan"] == 1
+    y_ref, state_ref = ssd_scan_ref(xbc, dt, loga, D, **kw)
+    torch.cuda.synchronize()
+    for got, want in ((y, y_ref), (state, state_ref)):
+        assert torch.isfinite(got).all()
+        assert float(((got - want).abs() / (want.abs() + 1)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("rows,d", [(12, 3584), (12, 7168), (3, 64)])
+def test_rms_norm_rows_kernel(cuda, rows, d):
+    """The decode step's one-launch RMSNorm against ``layers.rmsnorm``:
+    within 1 bf16 ulp (the squares summed in another order)."""
+    from repro_torch.kernels.mamba_step.ops import rms_norm_rows
+
+    rng = np.random.default_rng(rows * d)
+    x = (_rand(rng, (rows, d), "float32", cuda) * 3).to(torch.bfloat16)
+    g = (1 + 0.2 * _rand(rng, (d,), "float32", cuda)).to(torch.bfloat16)
+    reset_launch_counts()
+    got = rms_norm_rows(x, g, 1e-5)
+    assert launch_counts()["rms_norm_rows"] == 1
+    assert _bf16_ulps(got, layers.rmsnorm(x, g, 1e-5)) <= 1

@@ -25,6 +25,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.kv_log_append.ops import kv_log_append, qkv_log_append
 from repro_torch.kernels.log_compact.ops import log_compact, log_compact_tiers
+from repro_torch.kernels.mamba_step.ops import mamba_step
 from repro_torch.models import layers
 from repro_torch.models.layers import AttnParams
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention, split_plan
@@ -335,5 +336,11 @@ def test_cpu_calls_launch_nothing():
     q = torch.zeros(1, 4, 2, 16)
     flash_attention(q, q[:, :, :2], q[:, :, :2])
     layers.moe_slots(torch.tensor([[1, 0], [1, 1]]), 2, 2)
+    H, P, N, G = 4, 4, 32, 2  # the Mamba2 decode step's plain version on one row
+    bf = torch.bfloat16
+    mamba_step(torch.zeros(1, 2 * H * P + 2 * G * N + H, dtype=bf), torch.zeros(2, 3, H * P + 2 * G * N, dtype=bf),
+               torch.zeros(2, H, P, N), torch.zeros(H * P + 2 * G * N, 4, dtype=bf), None, torch.zeros(H, dtype=bf),
+               torch.zeros(H, dtype=bf), torch.ones(H, dtype=bf), torch.ones(H * P, dtype=bf),
+               torch.tensor([0], dtype=torch.int32), groups=G)
     assert launch_counts() == {"paged_attention": 0, "log_compact": 0, "kv_log_append": 0, "flash_attention": 0,
-                               "moe_routing": 0}
+                               "moe_routing": 0, "mamba_step": 0, "rms_norm_rows": 0, "ssd_scan": 0}
